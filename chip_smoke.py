@@ -5,24 +5,38 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's Cascaded main path once, in phases, each printing one
-line (any failure raises and exits non-zero):
+It drives the port's two main paths, Cascaded and LZ4, in phases, each
+printing one line (any failure raises and exits non-zero):
 
 1. device: the card's name, and its power limit from nvidia-smi
 2. build: the CUDA kernels from tpucomp_torch/csrc, with nvcc, timed
-3. kernel vs plain: every kernel case of tests/torch_cases.py (the test
+3. Cascaded kernel vs plain: every kernel case of tests/torch_cases.py (the test
    matrix, the rest of the option space, random options and shapes, two
    16 MB partitions) on CUDA tensors, with corrupt, damaged and garbage
    streams, through both the kernels and their plain PyTorch versions; exact equality (tolerance 0: the codec is
    lossless and every output is an integer tensor).  A few default-option
    partitions are also checked against tests/oracles/cascaded_oracle.py.
-4. main path: 256 MB of the mixed corpus and of the run-heavy corpus, as
+4. Cascaded main path: 256 MB of the mixed corpus and of the run-heavy corpus, as
    uint8[4096, 65536], through tpucomp_torch.cascaded_codec.compress /
    decompress on cuda:0; exact round trips, all SUCCESS, both kernels
    launched (launch counters reset just before)
-5. times: CUDA-event medians (with min and max) of the kernels, of their
+5. Cascaded times: CUDA-event medians (with min and max) of the kernels, of their
    plain versions at the same shape, and of a device-to-device copy of the
    same bytes
+6. LZ4 kernel vs plain: the cases of tests/torch_lz4_cases.py (strides 1,
+   2 and 4; chunks from 64 B to 1 MB and one of 16 MB; the oracle's
+   streams and the golden fixtures; garbage, truncated, bit-flipped and
+   hand-corrupted streams; undersized outputs), tolerance 0; streams of
+   stride 1 up to 64 KB also equal the oracle's
+7. LZ4 main path: both corpora through tpucomp_torch.lz4_codec.compress /
+   decompress; exact round trips, all SUCCESS, both kernels launched
+   (launch counters reset just before)
+8. LZ4 times: the candidate-table pre-pass, both kernels, the plain
+   versions (timed once each; encode 512 chunks at a time) and a device
+   copy; the kernels are held to the plain versions on the whole batch
+9. profile: one step of each main path under torch.profiler: device time
+   by stage, the largest kernels and the device's idle share; the output
+   zero-fills timed alone
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -40,6 +54,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, C = 4096, 65536  # 256 MB in 64 KB partitions
 ITERS, WARMUP = 7, 2
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+LZ4_PLAIN_SLICE = 512  # the plain LZ4 encoder runs the batch 512 chunks at a time (memory)
+
+
+def bound_ms(nbytes: int) -> float:
+    """The least time to move ``nbytes`` through device memory once."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def _equal(name, got, want):
@@ -193,12 +214,263 @@ def phase_times(dev, corpora):
         dst = torch.empty_like(data)
         t["d2d_copy"] = wall(dst.copy_, data, iters=ITERS, warmup=WARMUP, bytes_processed=nbytes)
         times[name] = {k: v.summary() for k, v in t.items()}
+        times[name]["comp_bytes"] = int(sizes.to(torch.int64).sum())
         line = ", ".join(f"{k} {v.gbps:.3f} GB/s (median {v.median_ms:.3f} ms, "
                          f"min {v.min_ms:.3f}, max {v.max_ms:.3f})" for k, v in t.items())
         print(f"phase 5 times {name} 256 MB [4096 x 64 KB]: {line}", flush=True)
         del comp, sizes, dst
         torch.cuda.empty_cache()
     return times, err
+
+
+def _lz4_decode_both(err, comp, sizes, cap, label):
+    import torch
+
+    from tpucomp_torch.codecs import lz4 as tl
+    from tpucomp_torch.kernels import lz4_cuda as kl
+
+    got = kl.decompress(comp, sizes, cap)
+    want = tl._decompress_plain(comp, sizes, cap)
+    torch.cuda.synchronize()
+    for part, g, w in zip(("data", "lengths", "status"), got, want):
+        err["decode"] = max(err["decode"], _equal(f"{label} decode {part}", g, w))
+    return got
+
+
+def phase_lz4_matrix(dev):
+    """LZ4 kernel vs plain on every case; returns the max abs error per
+    kernel and the number of comparisons."""
+    import numpy as np
+    import torch
+
+    import torch_lz4_cases as cases
+    from oracles.lz4_oracle import lz4_compress_oracle
+    from tpucomp_torch.codecs import lz4 as tl
+    from tpucomp_torch.codecs import lz77
+    from tpucomp_torch.kernels import lz4_cuda as kl
+
+    err = {"encode": 0, "decode": 0}
+    n = 0
+
+    def cuda(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    rng = np.random.default_rng(2)
+    _, rows, rows_len = cases.compress_rows(rng)
+    encode_cases = [(f"rows stride {s}", rows, rows_len, s) for s in (1, 2, 4)]
+    encode_cases += [(f"typed stride {s}", *cases.typed_rows(rng), s) for s in (2, 4)]
+    encode_cases += [("merged 64 KB", *cases.merged_table_row(), 1)]
+    encode_cases += [(name, arr, lens, 1) for name, arr, lens in cases.kernel_sizes(rng)]
+    encode_cases += [("16 MB chunk", *cases.big_chunk(rng), 1)]
+    for label, arr, lens, stride in encode_cases:
+        d, ln = cuda(arr, lens)
+        nmp, dist = lz77.candidate_tables(d, ln, stride)
+        comp, sizes = kl.compress(d, ln, nmp, dist)
+        want = tl._compress_plain(d, ln, stride)
+        torch.cuda.synchronize()
+        err["encode"] = max(err["encode"], _equal(f"{label} encode rows", comp, want[0]),
+                            _equal(f"{label} encode sizes", sizes, want[1]))
+        del nmp, dist, want
+        if stride == 1 and arr.shape[1] <= 65536:
+            for i in range(len(lens)):
+                if comp[i, : int(sizes[i])].cpu().numpy().tobytes() != \
+                        lz4_compress_oracle(arr[i, : lens[i]].tobytes()):
+                    raise AssertionError(f"{label}: chunk {i} differs from the oracle")
+        c = arr.shape[1]
+        out, olen, status = _lz4_decode_both(err, comp, sizes, c, label)
+        if bool(status.any()) or not torch.equal(olen, ln) or not torch.equal(
+                out, d * (torch.arange(c, device=dev)[None, :] < ln[:, None])):
+            raise AssertionError(f"{label}: the kernels' round trip is not exact")
+        _lz4_decode_both(err, comp, sizes, max(1, c // 4), f"{label} undersized")
+        n += 3
+        if label == "rows stride 1":
+            _lz4_decode_both(err, *cuda(*cases.oracle_streams(arr, lens, comp.shape[1])), c, "oracle streams")
+            labels, bad, bad_sizes = cases.corrupt_streams(comp[0].cpu().numpy(), int(sizes[0]))
+            _lz4_decode_both(err, *cuda(bad, bad_sizes), c, "corrupt " + ",".join(labels))
+            n += 2
+        del d, ln, comp, sizes, out
+    names, comp, sizes, outs = cases.golden_streams()
+    out, olen, status = _lz4_decode_both(err, *cuda(comp, sizes), max(map(len, outs)), "golden")
+    for i, want in enumerate(outs):
+        if int(status[i]) or out[i, : int(olen[i])].cpu().numpy().tobytes() != want:
+            raise AssertionError(f"golden {names[i]} does not decode")
+    comp, sizes, cap = cases.s_max_overrun()
+    _lz4_decode_both(err, *cuda(comp, sizes), cap, "past the sequence bound")
+    n += 2
+    for seed in range(4):
+        comps, szs = cases.garbage_batch(np.random.default_rng(100 + seed), 64, cases.C + 600)
+        _lz4_decode_both(err, *cuda(comps, szs), cases.C, f"garbage seed {seed}")
+        n += 1
+    return err, n, len(encode_cases)
+
+
+def phase_lz4_main_path(corpora):
+    """The user's LZ4 path at full size: exact round trips through the kernels."""
+    import torch
+
+    import tpucomp_torch
+
+    for name, data in corpora.items():
+        batch = tpucomp_torch.ChunkBatch(data, torch.full((B,), C, dtype=torch.int32, device=data.device))
+        comp = tpucomp_torch.lz4_codec.compress(batch)
+        out, status = tpucomp_torch.lz4_codec.decompress(comp, C)
+        torch.cuda.synchronize()
+        if not (torch.equal(out.data, data) and bool((out.lengths == C).all())
+                and not bool(status.any())):
+            raise AssertionError(f"LZ4 {name}: 256 MB round trip is not exact")
+        total = int(comp.lengths.to(torch.int64).sum())
+        print(f"phase 7 LZ4 main path {name}: 256 MB exact round trip, all SUCCESS, "
+              f"ratio {B * C / total:.4f}", flush=True)
+
+
+def _timed_once(fn, *args, nbytes: int):
+    """(result, WallResult) of one call timed with CUDA events."""
+    import torch
+
+    from tpucomp_torch.utils.profiling import WallResult
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, WallResult([start.elapsed_time(end)], nbytes)
+
+
+def phase_lz4_times(corpora):
+    """CUDA-event times of the LZ4 pre-pass, kernels, plain versions and a
+    copy, with the kernels held to the plain versions; returns (times
+    dict, max abs err per kernel)."""
+    import torch
+
+    from tpucomp_torch.codecs import lz4 as tl
+    from tpucomp_torch.codecs import lz77
+    from tpucomp_torch.kernels import lz4_cuda as kl
+    from tpucomp_torch.utils.profiling import wall
+
+    nbytes = B * C
+
+    def plain_encode(data, lengths):
+        parts = [tl._compress_plain(data[i : i + LZ4_PLAIN_SLICE], lengths[i : i + LZ4_PLAIN_SLICE])
+                 for i in range(0, B, LZ4_PLAIN_SLICE)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    times, err = {}, {"encode": 0, "decode": 0}
+    for name, data in corpora.items():
+        lengths = torch.full((B,), C, dtype=torch.int32, device=data.device)
+        nmp, dist = lz77.candidate_tables(data, lengths)
+        comp, sizes = kl.compress(data, lengths, nmp, dist)
+        t = {}
+        t["prepass"] = wall(lz77.candidate_tables, data, lengths, iters=3, warmup=1,
+                            bytes_processed=nbytes)
+        (pc, ps), t["plain_encode"] = _timed_once(plain_encode, data, lengths, nbytes=nbytes)
+        t["kernel_encode"] = wall(kl.compress, data, lengths, nmp, dist, iters=ITERS, warmup=WARMUP,
+                                  bytes_processed=nbytes)
+        t["kernel_decode"] = wall(kl.decompress, comp, sizes, C, iters=ITERS, warmup=WARMUP,
+                                  bytes_processed=nbytes)
+        want, t["plain_decode"] = _timed_once(tl._decompress_plain, comp, sizes, C, nbytes=nbytes)
+        del nmp, dist
+        err["encode"] = max(err["encode"], _equal(f"LZ4 {name} encode rows", comp, pc),
+                            _equal(f"LZ4 {name} encode sizes", sizes, ps))
+        got = kl.decompress(comp, sizes, C)
+        for part, g, w in zip(("data", "lengths", "status"), got, want):
+            err["decode"] = max(err["decode"], _equal(f"LZ4 {name} decode {part}", g, w))
+        del pc, ps, got, want
+        _, steps, total, ok = tl._delimit(comp, sizes, C, comp.shape[1] // 3 + 2)
+        if not bool(ok.all()) or not bool((total == C).all()):
+            raise AssertionError(f"LZ4 {name}: the streams do not parse")
+        dst = torch.empty_like(data)
+        t["d2d_copy"] = wall(dst.copy_, data, iters=ITERS, warmup=WARMUP, bytes_processed=nbytes)
+        times[name] = {k: v.summary() for k, v in t.items()}
+        times[name]["comp_bytes"] = int(sizes.to(torch.int64).sum())
+        times[name]["sequences"] = int(steps.sum())
+        line = ", ".join(f"{k} {v.gbps:.3f} GB/s (median {v.median_ms:.3f} ms, "
+                         f"min {v.min_ms:.3f}, max {v.max_ms:.3f})" for k, v in t.items())
+        print(f"phase 8 LZ4 times {name} 256 MB [4096 x 64 KB] (plain versions timed once, "
+              f"encode {LZ4_PLAIN_SLICE} chunks at a time): {line}; "
+              f"{times[name]['sequences']} sequences, {times[name]['comp_bytes']} stream bytes", flush=True)
+        del comp, sizes, dst, steps, total, ok
+        torch.cuda.empty_cache()
+    return times, err
+
+
+def phase_profile(corpora):
+    """One step of each main path on the mixed corpus under
+    torch.profiler, its stages called as the codecs call them: device time
+    by stage and by kernel, and the device's idle share over the step's
+    wall time.  The wrappers' output zero-fills are timed alone, at the
+    wrappers' shapes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpucomp_torch.codecs import cascaded as cc
+    from tpucomp_torch.codecs import lz77
+    from tpucomp_torch.core.options import CascadedOpts
+    from tpucomp_torch.core.sizing import lz4_max_compressed_chunk_size
+    from tpucomp_torch.kernels import cascaded_cuda as kc
+    from tpucomp_torch.kernels import lz4_cuda as kl
+    from tpucomp_torch.utils.profiling import wall
+
+    data = corpora["mixed"]
+    lengths = torch.full((B,), C, dtype=torch.int32, device=data.device)
+    o = CascadedOpts()
+    stages = ("prepass", "encode", "decode")
+
+    def cascaded_step():
+        with record_function("encode"):
+            comp, sizes = kc.compress(data, lengths, o)
+        with record_function("decode"):
+            kc.decompress(comp, sizes, o, C)
+
+    def lz4_step():
+        with record_function("prepass"):
+            nmp, dist = lz77.candidate_tables(data, lengths)
+        with record_function("encode"):
+            comp, sizes = kl.compress(data, lengths, nmp, dist)
+        with record_function("decode"):
+            kl.decompress(comp, sizes, C)
+
+    def zeros(cols):
+        return wall(torch.zeros, B, cols, dtype=torch.uint8, device=data.device, iters=ITERS, warmup=WARMUP)
+
+    def step_wall_ms(step):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return sorted(walls)[1]
+
+    for path, step, enc_cols in (("cascaded", cascaded_step, cc.partition_output_max(C, o)),
+                                 ("lz4", lz4_step, lz4_max_compressed_chunk_size(C))):
+        wall_ms = step_wall_ms(step)  # host clock, without the profiler
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        avg = {e.key: e for e in prof.key_averages()}
+        # device work: the device-side entries (kernels, copies, fills), but
+        # not the annotated ranges, which the profiler also lists as
+        # device-side spans over their kernels, nor its own buffer requests
+        work = {k: e.self_device_time_total / 1e3 for k, e in avg.items()
+                if e.device_type != DeviceType.CPU and k not in stages
+                and not k.startswith("Activity Buffer") and e.self_device_time_total > 0}
+        busy = sum(work.values())
+        if busy <= 0:
+            print(f"phase 9 profile {path}: the profiler reported no device time (not measured)", flush=True)
+            continue
+        parts = [f"{s} {avg[s].device_time_total / 1e3:.3f} ms" for s in stages if s in avg]
+        kernels = {s: sum(v for k, v in work.items() if f"{path}_{s}_kernel" in k) for s in stages[1:]}
+        top = ", ".join(f"{k[:70]} {v:.3f} ms" for k, v in sorted(work.items(), key=lambda kv: -kv[1])[:6])
+        fill = zeros(enc_cols).median_ms + zeros(C).median_ms
+        print(f"phase 9 profile {path} mixed step: wall {wall_ms:.3f} ms (median of 3, no profiler), "
+              f"device busy {busy:.3f} ms (profiled step), "
+              f"device idle {max(0.0, 1 - busy / wall_ms):.4f}; ranges: {', '.join(parts)}; "
+              f"kernels: encode {kernels['encode']:.3f} ms, decode {kernels['decode']:.3f} ms; "
+              f"output zero-fills alone {fill:.3f} ms; largest: {top}", flush=True)
 
 
 def main() -> int:
@@ -213,6 +485,7 @@ def main() -> int:
 
     from tpucomp_torch.kernels import _build
     from tpucomp_torch.kernels import cascaded_cuda as kc
+    from tpucomp_torch.kernels import lz4_cuda as kl
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -245,23 +518,63 @@ def main() -> int:
         name: torch.from_numpy(np.frombuffer(gen(B * C), np.uint8).reshape(B, C).copy()).to(dev)
         for name, gen in (("mixed", load_corpus), ("runheavy", runheavy_corpus))
     }
-    for k in kc.LAUNCHES:
-        kc.LAUNCHES[k] = 0
+
+    def reset_counts():
+        for counts in (kc.LAUNCHES, kl.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    reset_counts()
     phase_main_path(dev, corpora)
-    launches = dict(kc.LAUNCHES)
+    launches = {"cascaded": dict(kc.LAUNCHES)}
+    for k in ("encode", "decode"):
+        if kl.LAUNCHES[k]:
+            raise AssertionError("the Cascaded main path launched an LZ4 kernel")
 
     times, main_err = phase_times(dev, corpora)
+
+    t0 = time.perf_counter()
+    lz4_err, n_lz4, n_lz4_inputs = phase_lz4_matrix(dev)
+    print(f"phase 6 LZ4 kernel vs plain: {n_lz4} comparisons on {n_lz4_inputs} encode inputs "
+          f"and their streams, the oracle's, the golden fixtures and 4 garbage batches equal "
+          f"(tolerance 0), oracle agrees ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    reset_counts()
+    phase_lz4_main_path(corpora)
+    launches["lz4"] = dict(kl.LAUNCHES)
+    for k in ("encode", "decode"):
+        if launches["lz4"][k] < len(corpora) or kc.LAUNCHES[k]:
+            raise AssertionError(f"the LZ4 main path did not launch the LZ4 {k} kernel alone")
+    print(f"  launches on the main paths: {json.dumps(launches)}", flush=True)
+
+    lz4_times, lz4_main_err = phase_lz4_times(corpora)
+    phase_profile(corpora)
+
     kernels = []
-    for k, src, line in (("encode", "cascaded_encode.cu", 294), ("decode", "cascaded_decode.cu", 874)):
+    mixed, lz4_mixed = times["mixed"], lz4_times["mixed"]
+    rows = (
+        ("cascaded", "encode", "cascaded_encode.cu", "cascaded_pallas.py:294", mixed, max(matrix_err["encode"], main_err["encode"]),
+         B * C + mixed["comp_bytes"] + 8 * B),
+        ("cascaded", "decode", "cascaded_decode.cu", "cascaded_pallas.py:874", mixed, max(matrix_err["decode"], main_err["decode"]),
+         mixed["comp_bytes"] + B * C + 12 * B),
+        ("lz4", "encode", "lz4_encode.cu", "lz_pallas.py:757", lz4_mixed, max(lz4_err["encode"], lz4_main_err["encode"]),
+         B * C + lz4_mixed["comp_bytes"] + 8 * lz4_mixed["sequences"] + 8 * B),
+        ("lz4", "decode", "lz4_decode.cu", "lz_pallas.py:398", lz4_mixed, max(lz4_err["decode"], lz4_main_err["decode"]),
+         lz4_mixed["comp_bytes"] + B * C + 12 * B),
+    )
+    for codec, k, src, line, t, err, nbytes in rows:
         kernels.append({
-            "name": f"cascaded_{k}",
+            "name": f"{codec}_{k}",
             "route": "cuda",
             "source": f"tpucomp_torch/csrc/{src}",
-            "replaces": f"tpucomp/kernels/cascaded_pallas.py:{line}",
-            "launches": launches[k],
-            "max_abs_err": max(matrix_err[k], main_err[k]),
-            "ms": times["mixed"][f"kernel_{k}"]["median_ms"],
-            "plain_ms": times["mixed"][f"plain_{k}"]["median_ms"],
+            "replaces": f"tpucomp/kernels/{line}",
+            "launches": launches[codec][k],
+            "max_abs_err": err,
+            "ms": t[f"kernel_{k}"]["median_ms"],
+            "plain_ms": t[f"plain_{k}"]["median_ms"],
+            "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes",
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -104,7 +104,7 @@ def test_slice_end_to_end_equals_tpucomp(rng):
     chunks = [torch_cases.profile_bytes(rng, p, n, 4)
               for p, n in (("runs", 8192), ("random", 5000), ("ramp", 8191), ("runs", 0))]
     launches = dict(cascaded_cuda.LAUNCHES)
-    batch = tpucomp_torch.pack_chunks(chunks, 8192)
+    batch = tpucomp_torch.pack_chunks(chunks, 8192, device="cpu")
     comp = tpucomp_torch.cascaded_codec.compress(batch)
     out, status = tpucomp_torch.cascaded_codec.decompress(comp, batch.capacity)
     expected = [c[: len(c) // 4 * 4] for c in chunks]
@@ -155,7 +155,9 @@ def test_port_never_imports_jax_or_tpucomp():
     root = pathlib.Path(tpucomp_torch.__file__).parent
     files = sorted(root.rglob("*.py"))
     assert len(files) >= 15
-    files += [root.parent / "chip_smoke.py", pathlib.Path(torch_cases.__file__)]
+    tests = pathlib.Path(torch_cases.__file__).parent
+    files += [root.parent / "chip_smoke.py", tests / "torch_cases.py", tests / "torch_lz4_cases.py",
+              tests / "oracles" / "cascaded_oracle.py", tests / "oracles" / "lz4_oracle.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

@@ -1,6 +1,7 @@
 """tpucomp_torch core and utils held to tpucomp's (exact equality)."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -118,7 +119,7 @@ def test_pack_unpack_chunks_equal_tpucomp(rng):
     chunks = [rng.integers(0, 256, size=n, dtype=np.uint8).tobytes() for n in [0, 1, 7, 100, 64]]
     chunks.append(np.arange(33, dtype=np.uint8))
     for cap in (None, 128):
-        ours = chunking.pack_chunks(chunks, cap)
+        ours = chunking.pack_chunks(chunks, cap, device="cpu")
         ref = tpucomp.pack_chunks(chunks, cap)
         np.testing.assert_array_equal(ours.data.numpy(), np.asarray(ref.data))
         np.testing.assert_array_equal(ours.lengths.numpy(), np.asarray(ref.lengths))
@@ -127,7 +128,22 @@ def test_pack_unpack_chunks_equal_tpucomp(rng):
         assert chunking.unpack_chunks(ours) == tpucomp.unpack_chunks(ref)
         assert chunking.unpack_chunks(ours) == [c if isinstance(c, bytes) else c.tobytes() for c in chunks]
     with pytest.raises(ValueError):
-        chunking.pack_chunks(chunks, 50)
+        chunking.pack_chunks(chunks, 50, device="cpu")
+
+
+@pytest.mark.parametrize("make", ["pack_chunks", "from_numpy"])
+def test_batches_default_to_the_card(make):
+    """Without ``device`` a batch asks for the card; on a machine without
+    one that is torch's own error, never a silent CPU batch."""
+    fn = chunking.pack_chunks if make == "pack_chunks" else chunking.ChunkBatch.from_numpy
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    args = ([b"abc", b"de"],) if make == "pack_chunks" else (np.zeros((2, 3), np.uint8), [3, 2])
+    if torch.cuda.is_available():
+        batch = fn(*args)
+        assert batch.data.is_cuda and batch.lengths.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            fn(*args)
 
 
 def test_chunk_batch_numpy_round_trip(rng):

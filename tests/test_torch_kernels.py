@@ -125,4 +125,39 @@ def test_build_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert _build.library_path() != first
     assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
     assert sorted(p.name for p in _build._sources()) == ["a.cu"]
-    assert {"tc_cascaded_encode", "tc_cascaded_decode"} == set(_build.SIGNATURES)
+    assert {"tc_cascaded_encode", "tc_cascaded_decode", "tc_lz4_encode", "tc_lz4_decode"} == \
+        set(_build.SIGNATURES)
+
+
+def test_build_compiles_each_source_then_links_one_library(monkeypatch, tmp_path):
+    """One nvcc per source, all started before any is waited on, then one
+    link; the compilers' reports land in the log and no object is left."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in ("a.cu", "b.cu", "common.cuh"):
+        (src / name).write_text(f"// {name}")
+    calls = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {calls}\n'
+        # a compile finishes only once both have started
+        f'case " $* " in *" -c "*) n=0; until [ "$(wc -l < {calls})" -ge 2 ]; do\n'
+        '  n=$((n + 1)); [ $n -gt 100 ] && exit 1; sleep 0.1; done;; esac\n'
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo built > "$2"\n'
+        'echo "ptxas info    : Used 1 registers" >&2\n'
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "SOURCES", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_find_nvcc", lambda: str(fake))
+    path = _build.build()
+    lines = calls.read_text().splitlines()
+    assert len(lines) == 3 and all(" -c " in f" {x} " for x in lines[:2])
+    assert sorted(x.split()[-1] for x in lines[:2]) == [str(src / "a.cu"), str(src / "b.cu")]
+    assert lines[2].startswith("-shared -o")
+    assert path.read_text() == "built\n" and path == _build.library_path()
+    assert path.with_suffix(".log").read_text().count("Used 1 registers") == 2
+    assert sorted(p.name for p in path.parent.iterdir()) == sorted([path.name, path.with_suffix(".log").name])
+    assert _build.build() == path and len(calls.read_text().splitlines()) == 3  # built once

@@ -5,7 +5,9 @@ A batch of B chunks with capacity C bytes is the dense pair::
     ChunkBatch(data: uint8[B, C], lengths: int32[B])
 
 of torch tensors on one device.  Rows are zero past ``lengths[b]`` when
-built by ``pack_chunks``.
+built by ``pack_chunks``.  Batches go to the card (``device="cuda"``)
+unless the caller asks for another device; ``device="cpu"`` selects the
+codecs' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ class ChunkBatch:
         return self.data.shape[1]
 
     @classmethod
-    def from_numpy(cls, data: np.ndarray, lengths: np.ndarray, device=None) -> "ChunkBatch":
+    def from_numpy(cls, data: np.ndarray, lengths: np.ndarray, device="cuda") -> "ChunkBatch":
         """Copy numpy (uint8[B, C], int[B]) arrays onto ``device``; the
         batch never shares memory with the arrays."""
         return cls(
@@ -47,7 +49,7 @@ class ChunkBatch:
 
 
 def pack_chunks(
-    chunks: Sequence[bytes | np.ndarray], capacity: int | None = None, device=None
+    chunks: Sequence[bytes | np.ndarray], capacity: int | None = None, device="cuda"
 ) -> ChunkBatch:
     """Pack byte strings / uint8 arrays into a dense ChunkBatch on ``device``."""
     arrs = [

@@ -1,7 +1,8 @@
-"""Cascaded codec options as a frozen dataclass.
+"""Codec options as frozen dataclasses.
 
-PyTorch counterpart of ``tpucomp.core.options.CascadedOpts`` (the
-reference's hipcompBatchedCascadedOpts_t).  int64 is native in torch, so
+PyTorch counterparts of ``tpucomp.core.options.LZ4Opts`` and
+``CascadedOpts`` (the reference's hipcompBatchedLZ4Opts_t and
+hipcompBatchedCascadedOpts_t).  int64 is native in torch, so
 the JAX package's 64-bit-mode check has no counterpart here; every other
 check keeps its message.
 """
@@ -12,6 +13,22 @@ import dataclasses
 
 from tpucomp_torch.core import sizing
 from tpucomp_torch.core.types import DataType, width_of
+
+
+@dataclasses.dataclass(frozen=True)
+class LZ4Opts:
+    """LZ4 codec options.
+
+    ``data_type`` sets the match finder's granularity: with a 2- or 4-byte
+    type, matches start on element boundaries at element-multiple offsets.
+    Streams are valid LZ4 blocks for any setting.
+    """
+
+    data_type: DataType = DataType.UCHAR
+
+    def validate(self) -> None:
+        if width_of(self.data_type) not in (1, 2, 4):
+            raise ValueError("LZ4 data_type must be 1, 2 or 4 bytes wide")
 
 
 @dataclasses.dataclass(frozen=True)

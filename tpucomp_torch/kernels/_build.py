@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 All ``tpucomp_torch/csrc/*.cu`` sources are compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
+Hopper (``sm_90a``), one ``nvcc`` process per source, all started
+together, and linked into one shared library with a plain C interface,
 ``tpucomp_torch/_build/libtpucomp_kernels-<hash>.so``, at first use, and
 loaded with ``ctypes``; ``ptxas``'s report of each kernel's registers and
 shared memory goes beside it, into ``<hash>.log``.  The hash covers every source and header, so a
@@ -24,7 +25,7 @@ SOURCES = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, into the build log
 ]
 
@@ -39,6 +40,10 @@ SIGNATURES = {
     # comp, comp_sizes, out, out_bytes, status, batch, row_bytes,
     # out_capacity, width, dtype, elems, k, nr, nd, bp, stream
     "tc_cascaded_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P],
+    # data, lengths, nmp, dist, out, sizes, batch, row_bytes, out_row, stream
+    "tc_lz4_encode": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _P],
+    # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity, stream
+    "tc_lz4_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P],
 }
 
 
@@ -80,14 +85,34 @@ def build() -> Path:
         return path
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(SOURCES.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise BuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    path.with_suffix(".log").write_text(proc.stderr)
+    tag = f"{path.stem}.{os.getpid()}"
+    objects, procs = [], []
+    for src in sorted(SOURCES.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                            text=True)))
+        objects.append(obj)
+    logs = []
+    try:
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+            logs.append(err)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    path.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     return path
 
