@@ -5,8 +5,9 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's two main paths, Cascaded and LZ4, in phases, each
-printing one line (any failure raises and exits non-zero):
+It drives the port's main paths, Cascaded, LZ4, Snappy and the high-level
+managers, in phases, each printing one line (any failure raises and exits
+non-zero):
 
 1. device: the card's name, and its power limit from nvidia-smi
 2. build: the CUDA kernels from tpucomp_torch/csrc, with nvcc, timed
@@ -34,9 +35,27 @@ printing one line (any failure raises and exits non-zero):
 8. LZ4 times: the candidate-table pre-pass, both kernels, the plain
    versions (timed once each; encode 512 chunks at a time) and a device
    copy; the kernels are held to the plain versions on the whole batch
-9. profile: one step of each main path under torch.profiler: device time
-   by stage, the largest kernels and the device's idle share; the output
-   zero-fills timed alone
+9. profile: one step of each main path (Cascaded, LZ4, Snappy) under
+   torch.profiler: device time by stage, the largest kernels and the
+   device's idle share; the output zero-fills timed alone
+10. Snappy kernel vs plain: the cases of tests/torch_snappy_cases.py
+   (chunks from 64 B to 1 MB and one of 16 MB; the oracle's streams, the
+   golden fixtures, foreign large-token streams, crafted edge streams;
+   garbage, truncated, bit-flipped and damaged streams; undersized
+   outputs), tolerance 0, except the data of the one crafted stream on
+   which the kernel is known to differ (ROADMAP Queue 3), held to its
+   stream-order result; streams up to 64 KB also equal the oracle's
+11. Snappy main path: both corpora through tpucomp_torch.snappy_codec;
+   exact round trips, all SUCCESS, both Snappy kernels launched and no
+   other codec's (launch counters reset just before)
+12. Snappy times: the candidate-table pre-pass, both kernels, the plain
+   versions (timed once each; encode 512 chunks at a time) and a device
+   copy; the kernels are held to the plain versions on the whole batch
+13. high-level managers: the 256 MB mixed corpus as one buffer through
+   LZ4Manager, SnappyManager and CascadedManager at their default chunk
+   sizes, create_manager on each artifact, exact round trips, the
+   codec's kernels launched; compress and decompress wall times, with
+   the artifact assembly and the stream slicing timed alone
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -55,7 +74,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B, C = 4096, 65536  # 256 MB in 64 KB partitions
 ITERS, WARMUP = 7, 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
-LZ4_PLAIN_SLICE = 512  # the plain LZ4 encoder runs the batch 512 chunks at a time (memory)
+LZ4_PLAIN_SLICE = 512  # the plain LZ4 and Snappy encoders run the batch 512 chunks at a time (memory)
 
 
 def bound_ms(nbytes: int) -> float:
@@ -395,8 +414,260 @@ def phase_lz4_times(corpora):
     return times, err
 
 
+def _snappy_tables(data, lengths):
+    from tpucomp_torch.codecs import lz77
+    from tpucomp_torch.codecs import snappy as ts
+
+    return lz77.candidate_tables(data, lengths, max_offset=ts.MAX_OFFSET, end_margin=ts.MIN_MATCH)
+
+
+def _snappy_decode_both(err, comp, sizes, cap, label, special=None, labels=()):
+    """Kernel vs plain decode; rows named in ``special`` (label -> bytes)
+    hold the kernel's data to the given bytes instead of the plain's."""
+    import torch
+
+    from tpucomp_torch.codecs import snappy as ts
+    from tpucomp_torch.kernels import snappy_cuda as ks
+
+    got = ks.decompress(comp, sizes, cap)
+    want = ts._decompress_plain(comp, sizes, cap)
+    torch.cuda.synchronize()
+    rows = [i for i, name in enumerate(labels) if special and name in special]
+    if rows:
+        for i in rows:
+            n = int(got[1][i])
+            if got[0][i, :n].cpu().numpy().tobytes() != special[labels[i]] or bool(got[0][i, n:].any()):
+                raise AssertionError(f"{label} {labels[i]}: the kernel's data is not the stream-order result")
+        keep = torch.ones(len(labels), dtype=torch.bool, device=comp.device)
+        keep[rows] = False
+        got, want = (got[0][keep], *got[1:]), (want[0][keep], *want[1:])
+    for part, g, w in zip(("data", "lengths", "status"), got, want):
+        err["decode"] = max(err["decode"], _equal(f"{label} decode {part}", g, w))
+    return got
+
+
+def phase_snappy_matrix(dev):
+    """Snappy kernel vs plain on every case; returns the max abs error per
+    kernel, the number of comparisons and the number of encode inputs."""
+    import numpy as np
+    import torch
+
+    import torch_snappy_cases as cases
+    from oracles.snappy_oracle import snappy_compress_oracle
+    from tpucomp_torch.codecs import snappy as ts
+    from tpucomp_torch.kernels import snappy_cuda as ks
+
+    err = {"encode": 0, "decode": 0}
+    n = 0
+
+    def cuda(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    rng = np.random.default_rng(3)
+    encode_cases = [("rows", *cases.compress_rows(rng)[1:]), ("window 64 KB", *cases.window_row()),
+                    ("128 KB rows", *cases.large_rows(rng))]
+    encode_cases += [(name, arr, lens) for name, arr, lens in cases.kernel_sizes(rng)]
+    encode_cases += [("16 MB chunk", *cases.big_chunk(rng))]
+    for label, arr, lens in encode_cases:
+        d, ln = cuda(arr, lens)
+        comp, sizes = ks.compress(d, ln, *_snappy_tables(d, ln))
+        want = ts._compress_plain(d, ln)
+        torch.cuda.synchronize()
+        err["encode"] = max(err["encode"], _equal(f"{label} encode rows", comp, want[0]),
+                            _equal(f"{label} encode sizes", sizes, want[1]))
+        del want
+        if arr.shape[1] <= 65536:
+            for i in range(len(lens)):
+                if comp[i, : int(sizes[i])].cpu().numpy().tobytes() != \
+                        snappy_compress_oracle(arr[i, : lens[i]].tobytes()):
+                    raise AssertionError(f"Snappy {label}: chunk {i} differs from the oracle")
+        c = arr.shape[1]
+        out, olen, status = _snappy_decode_both(err, comp, sizes, c, label)
+        if bool(status.any()) or not torch.equal(olen, ln) or not torch.equal(
+                out, d * (torch.arange(c, device=dev)[None, :] < ln[:, None])):
+            raise AssertionError(f"Snappy {label}: the kernels' round trip is not exact")
+        _snappy_decode_both(err, comp, sizes, max(1, c // 4), f"{label} undersized")
+        n += 3
+        if label == "rows":
+            _snappy_decode_both(err, *cuda(*cases.oracle_streams(arr, lens, comp.shape[1])), c, "oracle streams")
+            bad, bad_sizes = cases.damage(rng, comp.cpu().numpy(), sizes.cpu().numpy())
+            _snappy_decode_both(err, *cuda(bad, bad_sizes), c, "damaged")
+            n += 2
+        del d, ln, comp, sizes, out
+    names, comp, sizes, outs = cases.golden_streams()
+    out, olen, status = _snappy_decode_both(err, *cuda(comp, sizes), max(map(len, outs)), "golden")
+    labels, comp, sizes, outs2 = cases.foreign_streams(rng)
+    out2, olen2, status2 = _snappy_decode_both(err, *cuda(comp, sizes), 4096, "foreign")
+    for (o, ol, st), nm, ws in (((out, olen, status), names, outs), ((out2, olen2, status2), labels, outs2)):
+        for i, w in enumerate(ws):
+            if int(st[i]) or o[i, : int(ol[i])].cpu().numpy().tobytes() != w:
+                raise AssertionError(f"Snappy {nm[i]} does not decode")
+    n += 2
+    special = cases.kernel_data()
+    for labels, comp, sizes in cases.crafted_streams():
+        _, olen, status = _snappy_decode_both(err, *cuda(comp, sizes), cases.CRAFTED_CAP,
+                                              "crafted " + ",".join(labels), special, labels)
+        for i, name in enumerate(labels):
+            if (int(status[i]), int(olen[i])) != cases.CRAFTED_EXPECT[name]:
+                raise AssertionError(f"Snappy crafted {name}: status {int(status[i])} length {int(olen[i])}")
+        n += 1
+    for seed in range(4):
+        comps, szs = cases.garbage_batch(np.random.default_rng(100 + seed), 64, cases.C + 600)
+        _snappy_decode_both(err, *cuda(comps, szs), cases.C, f"garbage seed {seed}")
+        n += 1
+    return err, n, len(encode_cases)
+
+
+def phase_snappy_main_path(corpora):
+    """The user's Snappy path at full size: exact round trips through the kernels."""
+    import torch
+
+    import tpucomp_torch
+
+    for name, data in corpora.items():
+        batch = tpucomp_torch.ChunkBatch(data, torch.full((B,), C, dtype=torch.int32, device=data.device))
+        comp = tpucomp_torch.snappy_codec.compress(batch)
+        out, status = tpucomp_torch.snappy_codec.decompress(comp, C)
+        torch.cuda.synchronize()
+        if not (torch.equal(out.data, data) and bool((out.lengths == C).all())
+                and not bool(status.any())):
+            raise AssertionError(f"Snappy {name}: 256 MB round trip is not exact")
+        total = int(comp.lengths.to(torch.int64).sum())
+        print(f"phase 11 Snappy main path {name}: 256 MB exact round trip, all SUCCESS, "
+              f"ratio {B * C / total:.4f}", flush=True)
+
+
+def phase_snappy_times(corpora):
+    """CUDA-event times of the Snappy pre-pass, kernels, plain versions and
+    a copy, with the kernels held to the plain versions; returns (times
+    dict, max abs err per kernel).  Also counts the elements of the
+    streams and the sequences of the parse (runs of copy elements with one
+    offset; plus each chunk's last, literal-only sequence)."""
+    import torch
+
+    from tpucomp_torch.codecs import snappy as ts
+    from tpucomp_torch.kernels import snappy_cuda as ks
+    from tpucomp_torch.utils.profiling import wall
+
+    nbytes = B * C
+
+    def plain_encode(data, lengths):
+        parts = [ts._compress_plain(data[i : i + LZ4_PLAIN_SLICE], lengths[i : i + LZ4_PLAIN_SLICE])
+                 for i in range(0, B, LZ4_PLAIN_SLICE)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    times, err = {}, {"encode": 0, "decode": 0}
+    for name, data in corpora.items():
+        lengths = torch.full((B,), C, dtype=torch.int32, device=data.device)
+        nmp, dist = _snappy_tables(data, lengths)
+        comp, sizes = ks.compress(data, lengths, nmp, dist)
+        t = {}
+        t["prepass"] = wall(_snappy_tables, data, lengths, iters=3, warmup=1, bytes_processed=nbytes)
+        (pc, ps), t["plain_encode"] = _timed_once(plain_encode, data, lengths, nbytes=nbytes)
+        t["kernel_encode"] = wall(ks.compress, data, lengths, nmp, dist, iters=ITERS, warmup=WARMUP,
+                                  bytes_processed=nbytes)
+        t["kernel_decode"] = wall(ks.decompress, comp, sizes, C, iters=ITERS, warmup=WARMUP,
+                                  bytes_processed=nbytes)
+        want, t["plain_decode"] = _timed_once(ts._decompress_plain, comp, sizes, C, nbytes=nbytes)
+        del nmp, dist
+        err["encode"] = max(err["encode"], _equal(f"Snappy {name} encode rows", comp, pc),
+                            _equal(f"Snappy {name} encode sizes", sizes, ps))
+        got = ks.decompress(comp, sizes, C)
+        for part, g, w in zip(("data", "lengths", "status"), got, want):
+            err["decode"] = max(err["decode"], _equal(f"Snappy {name} decode {part}", g, w))
+        del pc, ps, got, want
+        (_, _, _, mlen, off), steps, total, ok = ts._delimit(comp, sizes, C, comp.shape[1] // 2 + 2)
+        if not bool(ok.all()) or not bool((total == C).all()):
+            raise AssertionError(f"Snappy {name}: the streams do not parse")
+        cont = torch.zeros_like(mlen, dtype=torch.bool)
+        cont[:, 1:] = (mlen[:, :-1] > 0) & (off[:, 1:] == off[:, :-1])
+        sequences = int(((mlen > 0) & ~cont).sum()) + B
+        del mlen, off, cont
+        dst = torch.empty_like(data)
+        t["d2d_copy"] = wall(dst.copy_, data, iters=ITERS, warmup=WARMUP, bytes_processed=nbytes)
+        times[name] = {k: v.summary() for k, v in t.items()}
+        times[name]["comp_bytes"] = int(sizes.to(torch.int64).sum())
+        times[name]["elements"] = int(steps.sum())
+        times[name]["sequences"] = sequences
+        line = ", ".join(f"{k} {v.gbps:.3f} GB/s (median {v.median_ms:.3f} ms, "
+                         f"min {v.min_ms:.3f}, max {v.max_ms:.3f})" for k, v in t.items())
+        print(f"phase 12 Snappy times {name} 256 MB [4096 x 64 KB] (plain versions timed once, "
+              f"encode {LZ4_PLAIN_SLICE} chunks at a time): {line}; {times[name]['elements']} elements, "
+              f"{sequences} sequences, {times[name]['comp_bytes']} stream bytes", flush=True)
+        del comp, sizes, dst, steps, total, ok
+        torch.cuda.empty_cache()
+    return times, err
+
+
+def phase_hlif(corpora, counters):
+    """The 256 MB mixed corpus as one buffer through each manager at its
+    default chunk size: create_manager on the artifact, exact round trip,
+    the codec's kernels launched; host-clock compress and decompress
+    times, and the assembly and slicing alone (CUDA events)."""
+    import torch
+
+    import tpucomp_torch
+    from tpucomp_torch.highlevel import headers as hdr
+    from tpucomp_torch.highlevel import manager as tm
+    from tpucomp_torch.utils.profiling import wall
+
+    data = corpora["mixed"].reshape(-1)
+    n = data.numel()
+    out_lines = {}
+    for name, cls in (("lz4", tpucomp_torch.LZ4Manager), ("snappy", tpucomp_torch.SnappyManager),
+                      ("cascaded", tpucomp_torch.CascadedManager)):
+        mgr = cls()
+        for counts in counters.values():
+            for k in counts:
+                counts[k] = 0
+        walls = {}
+        for stage in ("compress", "decompress"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if stage == "compress":
+                artifact, size = mgr.compress(data)
+            else:
+                mgr2 = tpucomp_torch.create_manager(artifact)
+                out, statuses = mgr2.decompress(artifact)
+            torch.cuda.synchronize()
+            walls[stage] = (time.perf_counter() - t0) * 1e3
+        if type(mgr2) is not cls or mgr2.uncomp_chunk_size != mgr.uncomp_chunk_size:
+            raise AssertionError(f"HLIF {name}: create_manager gave {type(mgr2).__name__}")
+        if not torch.equal(out, data) or bool(statuses.any()):
+            raise AssertionError(f"HLIF {name}: 256 MB round trip is not exact")
+        launched = dict(counters[name])
+        if not (launched["encode"] and launched["decode"]) or any(
+                any(c.values()) for k, c in counters.items() if k != name):
+            raise AssertionError(f"HLIF {name}: launches {counters}")
+        # the assembly and the slicing alone, at the manager's shapes
+        cs = mgr.uncomp_chunk_size
+        k = n // cs
+        comp, sizes = mgr._codec_compress(data.view(k, cs), torch.full((k,), cs, dtype=torch.int32,
+                                                                         device=data.device))
+        common = hdr.CommonHeader.unpack(artifact[: hdr.COMMON_HEADER_SIZE].cpu().numpy().tobytes())
+        head = artifact[: hdr.sections_offset(mgr.format_id)].cpu().numpy().tobytes()
+        cfg = mgr.configure_compression(n)
+        t_asm = wall(tm._assemble_artifact, comp, sizes, head, data_off=common.comp_data_offset,
+                     sections_off=hdr.sections_offset(mgr.format_id), out_max=cfg.max_compressed_buffer_size,
+                     iters=ITERS, warmup=WARMUP)
+        t_slice = wall(tm._slice_streams, artifact, common, hdr.sections_offset(mgr.format_id),
+                       mgr._max_comp_chunk_size(cs), iters=ITERS, warmup=WARMUP)
+        out_lines[name] = {"chunk": cs, "chunks": k, "artifact_bytes": size, "compress_ms": walls["compress"],
+                           "decompress_ms": walls["decompress"], "assemble_ms": t_asm.median_ms,
+                           "slice_ms": t_slice.median_ms, "launches": launched}
+        print(f"phase 13 HLIF {name}: {n / 2**20:.0f} MB mixed as one buffer, {k} chunks of {cs} B, create_manager -> "
+              f"{type(mgr2).__name__}, exact round trip, all SUCCESS, ratio {n / size:.4f}; compress "
+              f"{walls['compress']:.3f} ms ({n / walls['compress'] / 1e6:.3f} GB/s), decompress "
+              f"{walls['decompress']:.3f} ms ({n / walls['decompress'] / 1e6:.3f} GB/s) (host clock, one "
+              f"call each); alone: assembly {t_asm.median_ms:.3f} ms, slicing {t_slice.median_ms:.3f} ms "
+              f"(medians of {ITERS}); launches {launched}", flush=True)
+        del artifact, out, statuses, comp, sizes
+        torch.cuda.empty_cache()
+    return out_lines
+
+
 def phase_profile(corpora):
-    """One step of each main path on the mixed corpus under
+    """One step of each main path (Cascaded, LZ4, Snappy) on the mixed corpus under
     torch.profiler, its stages called as the codecs call them: device time
     by stage and by kernel, and the device's idle share over the step's
     wall time.  The wrappers' output zero-fills are timed alone, at the
@@ -408,9 +679,10 @@ def phase_profile(corpora):
     from tpucomp_torch.codecs import cascaded as cc
     from tpucomp_torch.codecs import lz77
     from tpucomp_torch.core.options import CascadedOpts
-    from tpucomp_torch.core.sizing import lz4_max_compressed_chunk_size
+    from tpucomp_torch.core.sizing import lz4_max_compressed_chunk_size, snappy_max_compressed_chunk_size
     from tpucomp_torch.kernels import cascaded_cuda as kc
     from tpucomp_torch.kernels import lz4_cuda as kl
+    from tpucomp_torch.kernels import snappy_cuda as ks
     from tpucomp_torch.utils.profiling import wall
 
     data = corpora["mixed"]
@@ -432,6 +704,14 @@ def phase_profile(corpora):
         with record_function("decode"):
             kl.decompress(comp, sizes, C)
 
+    def snappy_step():
+        with record_function("prepass"):
+            nmp, dist = _snappy_tables(data, lengths)
+        with record_function("encode"):
+            comp, sizes = ks.compress(data, lengths, nmp, dist)
+        with record_function("decode"):
+            ks.decompress(comp, sizes, C)
+
     def zeros(cols):
         return wall(torch.zeros, B, cols, dtype=torch.uint8, device=data.device, iters=ITERS, warmup=WARMUP)
 
@@ -446,7 +726,8 @@ def phase_profile(corpora):
         return sorted(walls)[1]
 
     for path, step, enc_cols in (("cascaded", cascaded_step, cc.partition_output_max(C, o)),
-                                 ("lz4", lz4_step, lz4_max_compressed_chunk_size(C))):
+                                 ("lz4", lz4_step, lz4_max_compressed_chunk_size(C)),
+                                 ("snappy", snappy_step, snappy_max_compressed_chunk_size(C))):
         wall_ms = step_wall_ms(step)  # host clock, without the profiler
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step()
@@ -486,7 +767,9 @@ def main() -> int:
     from tpucomp_torch.kernels import _build
     from tpucomp_torch.kernels import cascaded_cuda as kc
     from tpucomp_torch.kernels import lz4_cuda as kl
+    from tpucomp_torch.kernels import snappy_cuda as ks
 
+    counters = {"cascaded": kc.LAUNCHES, "lz4": kl.LAUNCHES, "snappy": ks.LAUNCHES}
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -520,16 +803,21 @@ def main() -> int:
     }
 
     def reset_counts():
-        for counts in (kc.LAUNCHES, kl.LAUNCHES):
+        for counts in counters.values():
             for k in counts:
                 counts[k] = 0
+
+    def only_launched(codec):
+        """True when the last main path launched both kernels of ``codec``
+        once per corpus or more, and no other codec's kernel."""
+        return all(counters[codec][k] >= len(corpora) for k in ("encode", "decode")) and not any(
+            any(c.values()) for name, c in counters.items() if name != codec)
 
     reset_counts()
     phase_main_path(dev, corpora)
     launches = {"cascaded": dict(kc.LAUNCHES)}
-    for k in ("encode", "decode"):
-        if kl.LAUNCHES[k]:
-            raise AssertionError("the Cascaded main path launched an LZ4 kernel")
+    if not only_launched("cascaded"):
+        raise AssertionError(f"the Cascaded main path launched {counters}")
 
     times, main_err = phase_times(dev, corpora)
 
@@ -542,16 +830,31 @@ def main() -> int:
     reset_counts()
     phase_lz4_main_path(corpora)
     launches["lz4"] = dict(kl.LAUNCHES)
-    for k in ("encode", "decode"):
-        if launches["lz4"][k] < len(corpora) or kc.LAUNCHES[k]:
-            raise AssertionError(f"the LZ4 main path did not launch the LZ4 {k} kernel alone")
-    print(f"  launches on the main paths: {json.dumps(launches)}", flush=True)
+    if not only_launched("lz4"):
+        raise AssertionError(f"the LZ4 main path did not launch the LZ4 kernels alone: {counters}")
 
     lz4_times, lz4_main_err = phase_lz4_times(corpora)
     phase_profile(corpora)
 
+    t0 = time.perf_counter()
+    snappy_err, n_snappy, n_snappy_inputs = phase_snappy_matrix(dev)
+    print(f"phase 10 Snappy kernel vs plain: {n_snappy} comparisons on {n_snappy_inputs} encode inputs "
+          f"and their streams, the oracle's, the golden fixtures, foreign and crafted streams and 4 "
+          f"garbage batches equal (tolerance 0; the one known divergent stream equals its stream-order "
+          f"result), oracle agrees ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    reset_counts()
+    phase_snappy_main_path(corpora)
+    launches["snappy"] = dict(ks.LAUNCHES)
+    if not only_launched("snappy"):
+        raise AssertionError(f"the Snappy main path did not launch the Snappy kernels alone: {counters}")
+    print(f"  launches on the main paths: {json.dumps(launches)}", flush=True)
+
+    snappy_times, snappy_main_err = phase_snappy_times(corpora)
+    hlif = phase_hlif(corpora, counters)
+
     kernels = []
-    mixed, lz4_mixed = times["mixed"], lz4_times["mixed"]
+    mixed, lz4_mixed, snappy_mixed = times["mixed"], lz4_times["mixed"], snappy_times["mixed"]
     rows = (
         ("cascaded", "encode", "cascaded_encode.cu", "cascaded_pallas.py:294", mixed, max(matrix_err["encode"], main_err["encode"]),
          B * C + mixed["comp_bytes"] + 8 * B),
@@ -561,6 +864,12 @@ def main() -> int:
          B * C + lz4_mixed["comp_bytes"] + 8 * lz4_mixed["sequences"] + 8 * B),
         ("lz4", "decode", "lz4_decode.cu", "lz_pallas.py:398", lz4_mixed, max(lz4_err["decode"], lz4_main_err["decode"]),
          lz4_mixed["comp_bytes"] + B * C + 12 * B),
+        ("snappy", "encode", "snappy_encode.cu", "snappy_pallas.py:360", snappy_mixed,
+         max(snappy_err["encode"], snappy_main_err["encode"]),
+         B * C + snappy_mixed["comp_bytes"] + 8 * snappy_mixed["sequences"] + 8 * B),
+        ("snappy", "decode", "snappy_decode.cu", "snappy_pallas.py:41", snappy_mixed,
+         max(snappy_err["decode"], snappy_main_err["decode"]),
+         snappy_mixed["comp_bytes"] + B * C + 12 * B),
     )
     for codec, k, src, line, t, err, nbytes in rows:
         kernels.append({
@@ -576,6 +885,7 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         })
+    print(f"  HLIF: {json.dumps(hlif)}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

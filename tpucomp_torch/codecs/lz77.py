@@ -1,4 +1,4 @@
-"""Dense LZ77 machinery of the LZ4 codec (counterpart of ``tpucomp.codecs.lz77``).
+"""Dense LZ77 machinery of the LZ4 and Snappy codecs (counterpart of ``tpucomp.codecs.lz77``).
 
 Every function works on a batch: ``data`` is uint8[B, C] and ``n`` the
 int32[B] valid lengths.
@@ -7,8 +7,9 @@ int32[B] valid lengths.
     ``(4-byte window, invalid flag, position)`` gives the exact nearest
     previous occurrence of every position, with no hash collisions
     (``nearest_prev_occurrence``); ``candidate_tables`` turns it into the
-    LZ4 encoder's inputs.  This pre-pass is torch ops on either device, as
-    the JAX package's is XLA outside its Pallas kernel.
+    encoders' inputs, with each format's window and end limits.  This
+    pre-pass is torch ops on either device, as the JAX package's is XLA
+    outside its Pallas kernel.
   - match lengths (plain version only): exact, unbounded common-prefix
     lengths by a greedy walk over prefix-doubled suffix-id levels
     (``match_lengths``).
@@ -82,20 +83,22 @@ def nearest_prev_occurrence(data: torch.Tensor, n: torch.Tensor, stride: int = 1
     return torch.empty_like(prev).scatter_(1, pos, prev)
 
 
-def candidate_tables(data: torch.Tensor, n: torch.Tensor, stride: int = 1, j: torch.Tensor | None = None):
-    """The LZ4 encoder's candidate tables, int32[B, C] each.
+def candidate_tables(data: torch.Tensor, n: torch.Tensor, stride: int = 1, j: torch.Tensor | None = None,
+                     max_offset: int = MAX_OFFSET, end_margin: int = LAST_VALID_MATCH):
+    """An LZ77 encoder's candidate tables, int32[B, C] each.
 
     ``nmp[i]``: the first candidate position >= i, or ``INF``; ``dist[i]``:
     the distance to the nearest previous occurrence (any value where there
-    is none).  A candidate has a previous occurrence at most 65535 back
-    and starts at most at ``n - 13`` (the LZ4 end rule).  ``j`` is
+    is none).  A candidate has a previous occurrence at most ``max_offset``
+    back and starts at most at ``n - end_margin``: 65535 and 13 for LZ4
+    (its end rule), 32768 and 4 for Snappy.  ``j`` is
     ``nearest_prev_occurrence``'s result, computed here when not given.
     """
     if j is None:
         j = nearest_prev_occurrence(data, n, stride)
     i = _iota(data.shape[1], data.device)
     dist = i - j
-    cand = (j >= 0) & (dist <= MAX_OFFSET) & (i[None, :] <= n.to(torch.int64)[:, None] - LAST_VALID_MATCH)
+    cand = (j >= 0) & (dist <= max_offset) & (i[None, :] <= n.to(torch.int64)[:, None] - end_margin)
     nmp = rev_cummin(torch.where(cand, i.to(torch.int32), INF).to(torch.int32))
     return nmp, dist.to(torch.int32)
 

@@ -71,3 +71,23 @@ def unpack_chunks(batch: ChunkBatch) -> List[bytes]:
     """Extract the valid bytes of every row as Python byte strings."""
     data, lengths = batch.to_numpy()
     return [data[i, : min(int(n), data.shape[1])].tobytes() for i, n in enumerate(lengths)]
+
+
+def split_stream(stream: bytes | np.ndarray, chunk_size: int, device="cuda") -> ChunkBatch:
+    """Split one contiguous byte stream into ``chunk_size`` chunks on
+    ``device`` (the high-level manager's chunking step); an empty stream
+    gives one empty chunk."""
+    buf = (np.frombuffer(stream, np.uint8) if isinstance(stream, (bytes, bytearray))
+           else np.asarray(stream, np.uint8).reshape(-1))
+    n = buf.size
+    num_chunks = max(1, -(-n // chunk_size))
+    data = np.zeros((num_chunks, chunk_size), np.uint8)
+    data.reshape(-1)[:n] = buf
+    lengths = np.full((num_chunks,), chunk_size, np.int32)
+    lengths[-1] = n - (num_chunks - 1) * chunk_size
+    return ChunkBatch(torch.from_numpy(data).to(device), torch.from_numpy(lengths).to(device))
+
+
+def join_stream(batch: ChunkBatch) -> bytes:
+    """Concatenate the valid bytes of every row back into one stream."""
+    return b"".join(unpack_chunks(batch))

@@ -1,10 +1,10 @@
 """Codec options as frozen dataclasses.
 
-PyTorch counterparts of ``tpucomp.core.options.LZ4Opts`` and
-``CascadedOpts`` (the reference's hipcompBatchedLZ4Opts_t and
-hipcompBatchedCascadedOpts_t).  int64 is native in torch, so
-the JAX package's 64-bit-mode check has no counterpart here; every other
-check keeps its message.
+PyTorch counterparts of ``tpucomp.core.options.LZ4Opts``, ``SnappyOpts``
+and ``CascadedOpts`` (the reference's hipcompBatchedLZ4Opts_t,
+hipcompBatchedSnappyOpts_t and hipcompBatchedCascadedOpts_t).  int64 is
+native in torch, so the JAX package's 64-bit-mode check has no
+counterpart here; every other check keeps its message.
 """
 
 from __future__ import annotations
@@ -29,6 +29,13 @@ class LZ4Opts:
     def validate(self) -> None:
         if width_of(self.data_type) not in (1, 2, 4):
             raise ValueError("LZ4 data_type must be 1, 2 or 4 bytes wide")
+
+
+@dataclasses.dataclass(frozen=True)
+class SnappyOpts:
+    """Snappy codec options (reserved, mirrors the reference's empty struct)."""
+
+    reserved: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

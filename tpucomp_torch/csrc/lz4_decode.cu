@@ -76,18 +76,6 @@ struct Stream {
   }
 };
 
-// out[o + k] = out[o - off + k mod off] for k < len (1 <= off <= o; len
-// is at most the output capacity, below 2**31).
-__device__ void copy_match(uint8_t* out, long long o, long long off, long long len, int lane) {
-  const uint8_t* src = out + o - off;
-  if (off >= len) {
-    for (long long k = lane; k < len; k += 32) out[o + k] = src[k];
-  } else {
-    const unsigned period = (unsigned)off;
-    for (long long k = lane; k < len; k += 32) out[o + k] = src[(unsigned)k % period];
-  }
-}
-
 __global__ void __launch_bounds__(kThreads) lz4_decode_kernel(DecodeParams P) {
   const long long b = warp_chunk(P.batch);
   if (b < 0) return;
