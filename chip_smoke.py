@@ -27,14 +27,17 @@ non-zero):
 6. LZ4 kernel vs plain: the cases of tests/torch_lz4_cases.py (strides 1,
    2 and 4; chunks from 64 B to 1 MB and one of 16 MB; the oracle's
    streams and the golden fixtures; garbage, truncated, bit-flipped and
-   hand-corrupted streams; undersized outputs), tolerance 0; streams of
-   stride 1 up to 64 KB also equal the oracle's
+   hand-corrupted streams; undersized outputs; the decode kernel's window
+   cases: near matches, periods 1-15, streams past the staged window and
+   cut short, an odd CMAX), tolerance 0; streams of stride 1 up to 64 KB
+   also equal the oracle's
 7. LZ4 main path: both corpora through tpucomp_torch.lz4_codec.compress /
    decompress; exact round trips, all SUCCESS, both kernels launched
    (launch counters reset just before)
 8. LZ4 times: the candidate-table pre-pass, both kernels, the plain
    versions (timed once each; encode 512 chunks at a time) and a device
-   copy; the kernels are held to the plain versions on the whole batch
+   copy; the kernels are held to the plain versions on the whole batch;
+   the decode time per sequence
 9. profile: one step of each main path (Cascaded, LZ4, Snappy) under
    torch.profiler: device time by stage, the largest kernels and the
    device's idle share; the output zero-fills timed alone
@@ -42,20 +45,24 @@ non-zero):
    (chunks from 64 B to 1 MB and one of 16 MB; the oracle's streams, the
    golden fixtures, foreign large-token streams, crafted edge streams;
    garbage, truncated, bit-flipped and damaged streams; undersized
-   outputs), tolerance 0, except the data of the one crafted stream on
-   which the kernel is known to differ (ROADMAP Queue 3), held to its
-   stream-order result; streams up to 64 KB also equal the oracle's
+   outputs, outputs that go back across earlier elements, and a 1 MB row
+   of them, timed; the decode kernel's window cases), tolerance 0;
+   streams up to 64 KB also equal the oracle's
 11. Snappy main path: both corpora through tpucomp_torch.snappy_codec;
    exact round trips, all SUCCESS, both Snappy kernels launched and no
    other codec's (launch counters reset just before)
 12. Snappy times: the candidate-table pre-pass, both kernels, the plain
    versions (timed once each; encode 512 chunks at a time) and a device
-   copy; the kernels are held to the plain versions on the whole batch
+   copy; the kernels are held to the plain versions on the whole batch;
+   the decode time per element
 13. high-level managers: the 256 MB mixed corpus as one buffer through
    LZ4Manager, SnappyManager and CascadedManager at their default chunk
    sizes, create_manager on each artifact, exact round trips, the
    codec's kernels launched; compress and decompress wall times, with
    the artifact assembly and the stream slicing timed alone
+14. decode scaling: the LZ4 and Snappy decode kernels on the first
+   1,056, 2,112 and 4,096 chunks of mixed (~8, 16 and 31 warps per SM):
+   time per sequence or element against the warps per SM
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -75,6 +82,7 @@ B, C = 4096, 65536  # 256 MB in 64 KB partitions
 ITERS, WARMUP = 7, 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 LZ4_PLAIN_SLICE = 512  # the plain LZ4 and Snappy encoders run the batch 512 chunks at a time (memory)
+SCALING_CHUNKS = (1056, 2112, 4096)  # ~8, 16 and 31 resident warps per SM on an H100's 132 SMs
 
 
 def bound_ms(nbytes: int) -> float:
@@ -316,6 +324,10 @@ def phase_lz4_matrix(dev):
     comp, sizes, cap = cases.s_max_overrun()
     _lz4_decode_both(err, *cuda(comp, sizes), cap, "past the sequence bound")
     n += 2
+    for label, comp, sizes, cap in cases.window_cases(cases.window_rows(np.random.default_rng(7)),
+                                                      lz4_compress_oracle):
+        _lz4_decode_both(err, *cuda(comp, sizes), cap, label)
+        n += 1
     for seed in range(4):
         comps, szs = cases.garbage_batch(np.random.default_rng(100 + seed), 64, cases.C + 600)
         _lz4_decode_both(err, *cuda(comps, szs), cases.C, f"garbage seed {seed}")
@@ -408,10 +420,19 @@ def phase_lz4_times(corpora):
                          f"min {v.min_ms:.3f}, max {v.max_ms:.3f})" for k, v in t.items())
         print(f"phase 8 LZ4 times {name} 256 MB [4096 x 64 KB] (plain versions timed once, "
               f"encode {LZ4_PLAIN_SLICE} chunks at a time): {line}; "
-              f"{times[name]['sequences']} sequences, {times[name]['comp_bytes']} stream bytes", flush=True)
+              f"{times[name]['sequences']} sequences, {times[name]['comp_bytes']} stream bytes; decode "
+              f"{_ns_per_step(t['kernel_decode'], steps)} ns per sequence of one chunk's walk", flush=True)
         del comp, sizes, dst, steps, total, ok
         torch.cuda.empty_cache()
     return times, err
+
+
+def _ns_per_step(t, steps) -> str:
+    """A decode kernel's median time over the mean (and the largest) count
+    of steps per chunk: the time of one step of one chunk's walk, as all
+    chunks walk at once."""
+    return (f"{t.median_ms * 1e6 / float(steps.double().mean()):.1f} "
+            f"({t.median_ms * 1e6 / int(steps.max()):.1f} over the longest chunk's {int(steps.max())})")
 
 
 def _snappy_tables(data, lengths):
@@ -421,9 +442,7 @@ def _snappy_tables(data, lengths):
     return lz77.candidate_tables(data, lengths, max_offset=ts.MAX_OFFSET, end_margin=ts.MIN_MATCH)
 
 
-def _snappy_decode_both(err, comp, sizes, cap, label, special=None, labels=()):
-    """Kernel vs plain decode; rows named in ``special`` (label -> bytes)
-    hold the kernel's data to the given bytes instead of the plain's."""
+def _snappy_decode_both(err, comp, sizes, cap, label):
     import torch
 
     from tpucomp_torch.codecs import snappy as ts
@@ -432,15 +451,6 @@ def _snappy_decode_both(err, comp, sizes, cap, label, special=None, labels=()):
     got = ks.decompress(comp, sizes, cap)
     want = ts._decompress_plain(comp, sizes, cap)
     torch.cuda.synchronize()
-    rows = [i for i, name in enumerate(labels) if special and name in special]
-    if rows:
-        for i in rows:
-            n = int(got[1][i])
-            if got[0][i, :n].cpu().numpy().tobytes() != special[labels[i]] or bool(got[0][i, n:].any()):
-                raise AssertionError(f"{label} {labels[i]}: the kernel's data is not the stream-order result")
-        keep = torch.ones(len(labels), dtype=torch.bool, device=comp.device)
-        keep[rows] = False
-        got, want = (got[0][keep], *got[1:]), (want[0][keep], *want[1:])
     for part, g, w in zip(("data", "lengths", "status"), got, want):
         err["decode"] = max(err["decode"], _equal(f"{label} decode {part}", g, w))
     return got
@@ -456,6 +466,7 @@ def phase_snappy_matrix(dev):
     from oracles.snappy_oracle import snappy_compress_oracle
     from tpucomp_torch.codecs import snappy as ts
     from tpucomp_torch.kernels import snappy_cuda as ks
+    from tpucomp_torch.utils.profiling import wall
 
     err = {"encode": 0, "decode": 0}
     n = 0
@@ -503,13 +514,22 @@ def phase_snappy_matrix(dev):
             if int(st[i]) or o[i, : int(ol[i])].cpu().numpy().tobytes() != w:
                 raise AssertionError(f"Snappy {nm[i]} does not decode")
     n += 2
-    special = cases.kernel_data()
     for labels, comp, sizes in cases.crafted_streams():
         _, olen, status = _snappy_decode_both(err, *cuda(comp, sizes), cases.CRAFTED_CAP,
-                                              "crafted " + ",".join(labels), special, labels)
+                                              "crafted " + ",".join(labels))
         for i, name in enumerate(labels):
             if (int(status[i]), int(olen[i])) != cases.CRAFTED_EXPECT[name]:
                 raise AssertionError(f"Snappy crafted {name}: status {int(status[i])} length {int(olen[i])}")
+        n += 1
+    comp, sizes, cap = cases.long_back_row()
+    comp, sizes = cuda(comp, sizes)
+    _snappy_decode_both(err, comp, sizes, cap, "long back row")
+    t = wall(ks.decompress, comp, sizes, cap, iters=ITERS, warmup=WARMUP)
+    print(f"  Snappy decode of the 1 MB row rewritten by start: {t.median_ms:.3f} ms "
+          f"(min {t.min_ms:.3f}, max {t.max_ms:.3f})", flush=True)
+    n += 1
+    for label, comp, sizes, cap in cases.window_cases(np.random.default_rng(7)):
+        _snappy_decode_both(err, *cuda(comp, sizes), cap, label)
         n += 1
     for seed in range(4):
         comps, szs = cases.garbage_batch(np.random.default_rng(100 + seed), 64, cases.C + 600)
@@ -593,10 +613,56 @@ def phase_snappy_times(corpora):
                          f"min {v.min_ms:.3f}, max {v.max_ms:.3f})" for k, v in t.items())
         print(f"phase 12 Snappy times {name} 256 MB [4096 x 64 KB] (plain versions timed once, "
               f"encode {LZ4_PLAIN_SLICE} chunks at a time): {line}; {times[name]['elements']} elements, "
-              f"{sequences} sequences, {times[name]['comp_bytes']} stream bytes", flush=True)
+              f"{sequences} sequences, {times[name]['comp_bytes']} stream bytes; decode "
+              f"{_ns_per_step(t['kernel_decode'], steps)} ns per element of one chunk's walk", flush=True)
         del comp, sizes, dst, steps, total, ok
         torch.cuda.empty_cache()
     return times, err
+
+
+def phase_decode_scaling(corpora):
+    """The LZ4 and Snappy decode kernels on the first 1,056, 2,112 and
+    4,096 chunks of the mixed batch: about 8, 16 and 31 warps per SM, all
+    resident at once.  The time per step of one chunk's walk is the
+    kernel's median over the mean (and the largest) count of sequences
+    (LZ4) or elements (Snappy) per chunk.  Flat across the sizes: the walk
+    waits on latency; growing with the warps per SM: it waits for issue
+    slots.  Returns {codec: [row per size]}."""
+    import torch
+
+    from tpucomp_torch.codecs import lz4 as tl
+    from tpucomp_torch.codecs import lz77
+    from tpucomp_torch.codecs import snappy as ts
+    from tpucomp_torch.kernels import lz4_cuda as kl
+    from tpucomp_torch.kernels import snappy_cuda as ks
+    from tpucomp_torch.utils.profiling import wall
+
+    data = corpora["mixed"]
+    lengths = torch.full((B,), C, dtype=torch.int32, device=data.device)
+    sms = torch.cuda.get_device_properties(data.device).multi_processor_count
+    codecs = (("lz4", "sequence", kl, tl, lz77.candidate_tables, 3),
+              ("snappy", "element", ks, ts, _snappy_tables, 2))
+    result = {}
+    for codec, unit, kern, plain, tables, s_div in codecs:
+        comp, sizes = kern.compress(data, lengths, *tables(data, lengths))
+        steps = plain._delimit(comp, sizes, C, comp.shape[1] // s_div + 2)[1]
+        rows = []
+        for n in SCALING_CHUNKS:
+            t = wall(kern.decompress, comp[:n], sizes[:n], C, iters=ITERS, warmup=WARMUP)
+            mean, most = float(steps[:n].double().mean()), int(steps[:n].max())
+            rows.append({"chunks": n, "warps_per_sm": n / sms, "median_ms": t.median_ms,
+                         "min_ms": t.min_ms, "max_ms": t.max_ms, f"{unit}s_per_chunk": mean,
+                         f"most_{unit}s": most, f"ns_per_{unit}": t.median_ms * 1e6 / mean,
+                         f"ns_per_{unit}_longest": t.median_ms * 1e6 / most})
+        result[codec] = rows
+        line = "; ".join(f"{r['chunks']} chunks ({r['warps_per_sm']:.1f} warps/SM): {r['median_ms']:.3f} ms "
+                         f"({r['min_ms']:.3f}-{r['max_ms']:.3f}), {r[f'ns_per_{unit}']:.1f} ns per {unit} "
+                         f"(mean {r[f'{unit}s_per_chunk']:.0f} per chunk), {r[f'ns_per_{unit}_longest']:.1f} "
+                         f"over the longest chunk's {r[f'most_{unit}s']}" for r in rows)
+        print(f"phase 14 decode scaling {codec} mixed: {line}", flush=True)
+        del comp, sizes, steps
+        torch.cuda.empty_cache()
+    return result
 
 
 def phase_hlif(corpora, counters):
@@ -746,7 +812,8 @@ def phase_profile(corpora):
         parts = [f"{s} {avg[s].device_time_total / 1e3:.3f} ms" for s in stages if s in avg]
         kernels = {s: sum(v for k, v in work.items() if f"{path}_{s}_kernel" in k) for s in stages[1:]}
         top = ", ".join(f"{k[:70]} {v:.3f} ms" for k, v in sorted(work.items(), key=lambda kv: -kv[1])[:6])
-        fill = zeros(enc_cols).median_ms + zeros(C).median_ms
+        # the LZ4 and Snappy decode wrappers allocate with torch.empty: the kernel writes every byte
+        fill = zeros(enc_cols).median_ms + (zeros(C).median_ms if path == "cascaded" else 0.0)
         print(f"phase 9 profile {path} mixed step: wall {wall_ms:.3f} ms (median of 3, no profiler), "
               f"device busy {busy:.3f} ms (profiled step), "
               f"device idle {max(0.0, 1 - busy / wall_ms):.4f}; ranges: {', '.join(parts)}; "
@@ -790,17 +857,20 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
+    from bench import load_corpus, runheavy_corpus
+
+    def make_corpora():
+        return {
+            name: torch.from_numpy(np.frombuffer(gen(B * C), np.uint8).reshape(B, C).copy()).to(dev)
+            for name, gen in (("mixed", load_corpus), ("runheavy", runheavy_corpus))
+        }
+
     t0 = time.perf_counter()
     matrix_err, n_cases, n_inputs = phase_matrix(dev)
     print(f"phase 3 kernel vs plain: {n_cases} comparisons on {n_inputs} inputs equal "
           f"(tolerance 0), oracle agrees ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    from bench import load_corpus, runheavy_corpus
-
-    corpora = {
-        name: torch.from_numpy(np.frombuffer(gen(B * C), np.uint8).reshape(B, C).copy()).to(dev)
-        for name, gen in (("mixed", load_corpus), ("runheavy", runheavy_corpus))
-    }
+    corpora = make_corpora()
 
     def reset_counts():
         for counts in counters.values():
@@ -840,8 +910,7 @@ def main() -> int:
     snappy_err, n_snappy, n_snappy_inputs = phase_snappy_matrix(dev)
     print(f"phase 10 Snappy kernel vs plain: {n_snappy} comparisons on {n_snappy_inputs} encode inputs "
           f"and their streams, the oracle's, the golden fixtures, foreign and crafted streams and 4 "
-          f"garbage batches equal (tolerance 0; the one known divergent stream equals its stream-order "
-          f"result), oracle agrees ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"garbage batches equal (tolerance 0), oracle agrees ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     reset_counts()
     phase_snappy_main_path(corpora)
@@ -852,6 +921,7 @@ def main() -> int:
 
     snappy_times, snappy_main_err = phase_snappy_times(corpora)
     hlif = phase_hlif(corpora, counters)
+    scaling = phase_decode_scaling(corpora)
 
     kernels = []
     mixed, lz4_mixed, snappy_mixed = times["mixed"], lz4_times["mixed"], snappy_times["mixed"]
@@ -886,6 +956,7 @@ def main() -> int:
             "library_ms": None,
         })
     print(f"  HLIF: {json.dumps(hlif)}", flush=True)
+    print(f"  decode scaling: {json.dumps(scaling)}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

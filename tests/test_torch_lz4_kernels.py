@@ -105,6 +105,18 @@ def test_lz4_decode_fixtures_and_corrupt_streams_equal_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", range(4))
+def test_lz4_decode_window_cases_equal_plain(cuda, case):
+    """The new design's regimes: matches in their own parse batch, periods
+    1-15, streams longer than the staged window with reads past the row's
+    end, an odd CMAX."""
+    rows = cases.window_rows(np.random.default_rng(7))
+    label, comp, sizes, cap = cases.window_cases(rows, lz4_compress_oracle)[case]
+    _decode_both(torch.from_numpy(comp).to(cuda), torch.from_numpy(sizes).to(cuda), cap)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("seed", range(40))
 def test_lz4_random_batches_equal_plain(cuda, seed):
     """Random rows, lengths, capacities and strides; the kernels' streams,

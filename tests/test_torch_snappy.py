@@ -179,11 +179,12 @@ def test_decompress_foreign_streams_equal_tpucomp(rng):
         assert got[2][i] == 0 and got[0][i, : got[1][i]].tobytes() == want, labels[i]
 
 
-@pytest.mark.parametrize("group", range(3))
+@pytest.mark.parametrize("group", range(4))
 def test_decompress_crafted_streams_equal_tpucomp(group):
     """The JAX decoder's edges (tests/torch_snappy_cases.py::crafted_streams):
     reads wrapping past the row end, the s_max bound, int32 wraps of
-    4-byte lengths and offsets (a zero-length literal is accepted), the
+    4-byte lengths and offsets (a zero-length literal is accepted; a
+    negative one moves the output back across earlier elements), the
     4-byte varint."""
     labels, comp, sizes = cases.crafted_streams()[group]
     got = _port_decompress(comp, sizes, cases.CRAFTED_CAP)

@@ -6,10 +6,7 @@ decides, not the import).  On the card::
 
     python -m pytest tests/test_torch_snappy_kernels.py -m cuda --noconftest -o addopts="" -q
 
-Tolerance: none.  Every output is an integer tensor and must be equal,
-except the data of the one stream listed in
-``torch_snappy_cases.kernel_data`` (ROADMAP Queue 3), which is held to
-its stream-order result.
+Tolerance: none.  Every output is an integer tensor and must be equal.
 """
 
 import numpy as np
@@ -103,25 +100,37 @@ def test_snappy_decode_fixtures_and_foreign_streams_equal_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group", range(3))
+@pytest.mark.parametrize("group", range(4))
 def test_snappy_decode_crafted_streams_equal_plain(cuda, group):
-    """Reads past the row end, the s_max bound, int32 wraps; on the one
-    divergent stream the data is the stream-order result while lengths
-    and statuses equal the plain version's."""
+    """Reads past the row end, the s_max bound, int32 wraps, and outputs
+    that go back across earlier elements (resolved by start, as the plain
+    version and the JAX package do)."""
     labels, comp, sizes = cases.crafted_streams()[group]
-    comp, sizes = torch.from_numpy(comp).to(cuda), torch.from_numpy(sizes).to(cuda)
-    got = ks.decompress(comp, sizes, cases.CRAFTED_CAP)
-    want = ts._decompress_plain(comp, sizes, cases.CRAFTED_CAP)
-    _equal(got[1:], want[1:])
-    special = cases.kernel_data()
+    _, olen, status = _decode_both(torch.from_numpy(comp).to(cuda), torch.from_numpy(sizes).to(cuda),
+                                   cases.CRAFTED_CAP)
     for i, label in enumerate(labels):
-        assert (int(got[2][i]), int(got[1][i])) == cases.CRAFTED_EXPECT[label], label
-        if label in special:
-            assert got[0][i, : int(got[1][i])].cpu().numpy().tobytes() == special[label], label
-            assert not got[0][i, int(got[1][i]):].any()
-            assert not torch.equal(got[0][i], want[0][i])
-        else:
-            assert torch.equal(got[0][i], want[0][i]), label
+        assert (int(status[i]), int(olen[i])) == cases.CRAFTED_EXPECT[label], label
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_snappy_decode_long_back_row_equal_plain(cuda):
+    """1 MB of output whose every 324 bytes go back: the whole row is
+    rewritten by start, in time linear in the row."""
+    comp, sizes, cap = cases.long_back_row()
+    _, olen, status = _decode_both(torch.from_numpy(comp).to(cuda), torch.from_numpy(sizes).to(cuda), cap)
+    assert int(status[0]) == 0 and int(olen[0]) == cap
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+def test_snappy_decode_window_cases_equal_plain(cuda, case):
+    """The new design's regimes: matches in their own parse batch, periods
+    1-15, streams longer than the staged window with reads past the row's
+    end, an odd CMAX."""
+    label, comp, sizes, cap = cases.window_cases(np.random.default_rng(7))[case]
+    _decode_both(torch.from_numpy(comp).to(cuda), torch.from_numpy(sizes).to(cuda), cap)
     torch.cuda.synchronize()
 
 

@@ -244,6 +244,43 @@ def random_row(rng, n: int) -> np.ndarray:
     return out
 
 
+def window_rows(rng) -> dict:
+    """Rows for the decode kernels' staged window and batched copies:
+    matches whose source lies a few elements back (in the same parse
+    batch), runs of every period 1-15 at unaligned output offsets, and a
+    12 KB row, half of it random, whose stream is longer than the 4 KB
+    window."""
+    near = []
+    for _ in range(250):
+        near.append(rng.integers(0, 256, 6, dtype=np.uint8))
+        back = int(rng.integers(12, 33))
+        flat = np.concatenate(near)
+        near.append(flat[flat.size - back : flat.size - back + 6])
+    periods = []
+    for p in range(1, 16):
+        periods.append(rng.integers(0, 256, 17 + p, dtype=np.uint8))
+        periods.append(np.tile(rng.integers(0, 256, p, dtype=np.uint8), 80 // p + 1)[:80])
+    return {"near_matches": np.concatenate(near), "periods": np.concatenate(periods),
+            "long": np.concatenate([rng.integers(0, 256, 6000, dtype=np.uint8), random_row(rng, 6000)])}
+
+
+def window_cases(rows: dict, compress_oracle):
+    """(label, comp uint8[B, CMAX], sizes int32[B], out capacity) for the
+    decode kernels: the streams of ``rows`` (``window_rows``) by ``compress_oracle`` in
+    rows of an odd CMAX (every row's staging starts unaligned), and the
+    long row's stream cut 1-3 bytes short with its full size, so its last
+    reads pass the row's end (clamped, or wrapped to its first byte)."""
+    streams = [compress_oracle(r.tobytes()) for r in rows.values()]
+    cap = max(r.size for r in rows.values())
+    odd = max(map(len, streams)) + 9 | 1
+    out = [("window, odd CMAX", *batch(streams, odd), cap)]
+    s = streams[-1]
+    for cut in (1, 2, 3):
+        comp, _ = batch([s[: len(s) - cut]], len(s) - cut)
+        out.append((f"long row cut by {cut}", comp, np.array([len(s)], np.int32), cap))
+    return out
+
+
 def random_batch(rng, c_max: int = 70000):
     """(uint8[B, C], int32[B], stride): 1-6 rows of ``random_row`` with
     random lengths in [0, C] and a random match stride."""

@@ -19,7 +19,8 @@ import os
 import numpy as np
 
 from oracles.snappy_oracle import snappy_compress_oracle
-from torch_lz4_cases import batch, damage, profiles, random_row
+from torch_lz4_cases import batch, damage, profiles, random_row, window_rows
+from torch_lz4_cases import window_cases as lz4_window_cases
 from tpucomp_torch.core.sizing import snappy_max_compressed_chunk_size as snappy_max
 
 C = 2048  # the capacity of the cases held against the JAX package
@@ -146,10 +147,33 @@ def foreign_streams(rng):
     return labels, comp, sizes, [out for _, out in cases.values()]
 
 
+def back_and_forth(units: int):
+    """(stream, output length): a 300-byte literal, then ``units`` times a
+    1-byte literal 'Z', the length -2 literal of ``negative_literal_overlap``
+    (a copy4 of 64 bytes at offset 255 read from its own length field, its
+    start one byte before the 'Z'), a 5-byte literal and four copy2 of 64
+    bytes at offset 3.  Every unit's output goes back, so the whole row is
+    written by start; 324 output bytes and 8 elements a unit."""
+    lit = np.random.default_rng(23).integers(0, 256, 300 + 5 * units, dtype=np.uint8).tobytes()
+    unit = [literal(b"Z") + bytes([0xFC, 0xFD, 0xFF, 0xFF, 0xFF, 0, 0, 0]) + literal(lit[300 + 5 * i : 305 + 5 * i])
+            + bytes([((64 - 1) << 2) | 2, 3, 0]) * 4 for i in range(units)]
+    n = 300 + 324 * units
+    return varint(n) + literal(lit[:300]) + b"".join(unit), n
+
+
+def long_back_row():
+    """``back_and_forth`` at 1 MB of output: 3,240 units, 25,921 elements,
+    for the card (comp uint8[1, CMAX], sizes int32[1], out_capacity)."""
+    s, n = back_and_forth(3240)
+    comp, _ = batch([s], len(s) + 8)
+    return comp, np.array([len(s)], np.int32), n
+
+
 def crafted_streams():
-    """Streams on the JAX decoder's edges, in three batches: the walks of
+    """Streams on the JAX decoder's edges, in four batches: the walks of
     ``wrap`` and ``s_max`` depend on where their rows end, so each has a
-    row of its own, as long as its stream; the rest share one.  Returns
+    row of its own, as long as its stream; the two whose output goes back
+    across earlier elements share the fourth, the rest the third.  Returns
     [(labels, comp uint8[B, CMAX], sizes int32[B])]; decode them at
     ``CRAFTED_CAP``.  ``CRAFTED_EXPECT`` holds each one's (status, length).
 
@@ -168,9 +192,17 @@ def crafted_streams():
     - ``negative_literal_overlap``: the same after a 1-byte literal 'Z' at
       300, so the copy4 starts at 299, before the 'Z'.  The JAX path
       resolves each output byte by the element with the largest start at
-      or before it, so bytes 300-362 are 'Z' and its run; the CUDA kernel
-      writes in stream order, so the copy overwrites them (the one known
-      divergence, ``kernel_data``);
+      or before it, so bytes 300-362 are 'Z' and its run, not the copy's
+      bytes that stream order would leave there;
+    - ``negative_literal_copy_across``: the same, then a copy2 of 20 bytes
+      at offset 70 whose source, bytes 293-312, crosses the overlap;
+    - ``negative_literal_two_back``: literals at 0, 200 and 203, then a
+      literal of length -21 that moves the output back to 198, across the
+      starts of the two before it, and the walk back 16 bytes into the
+      third one's data, where a 25-byte literal tag runs over the negative
+      literal to a copy1; by start, 198-199 are that literal's, 200-202
+      the second's, 203-222 the third's and its run, 223-226 the copy;
+    - ``negative_literal_repeated``: ``back_and_forth(2)``;
     - ``big_literal``: a 4-byte length field of 2**31 - 2, whose sums wrap;
     - ``copy4_negative_offset``: an offset with its top bit set;
     - ``varint4``: a varint of 4 bytes whose last has its continuation
@@ -199,6 +231,14 @@ def crafted_streams():
         "truncated_literal": varint(20) + literal(lit[:20]),
         "length_mismatch": varint(9) + literal(b"abcd") + bytes([1, 4]),
     }
+    third = bytes([(25 - 1) << 2]) + lit[310:325]  # a 25-byte literal tag, then 15 bytes
+    back = {
+        "negative_literal_copy_across": varint(383) + literal(lit[:300]) + literal(b"Z")
+        + bytes([0xFC, 0xFD, 0xFF, 0xFF, 0xFF, 0, 0, 0, ((20 - 1) << 2) | 2, 70, 0]),
+        "negative_literal_two_back": varint(227) + literal(lit[:200]) + literal(lit[200:203]) + literal(third)
+        + bytes([0xFC, 0xEA, 0xFF, 0xFF, 0xFF]) + lit[330:335] + bytes([1, 50]),
+        "negative_literal_repeated": back_and_forth(2)[0],
+    }
     sizes = {k: len(v) for k, v in edge.items()}
     sizes["negative_literal"] -= 1  # the walk ends one byte early
     sizes["truncated_literal"] -= 3
@@ -207,6 +247,8 @@ def crafted_streams():
         (["wrap"], batch([wrap], len(wrap))[0], np.array([len(wrap) + 1], np.int32)),
         (["s_max"], batch([s_max], len(s_max))[0], np.array([73], np.int32)),
         (list(edge), comp, np.array(list(sizes.values()), np.int32)),
+        (list(back), batch(list(back.values()), max(map(len, back.values())) + 8)[0],
+         np.array([len(v) for v in back.values()], np.int32)),
     ]
 
 
@@ -214,20 +256,29 @@ CRAFTED_CAP = 1024
 OK, BAD = 0, 12
 CRAFTED_EXPECT = {
     "wrap": (OK, 300), "s_max": (OK, 123), "zero_literal": (OK, 8), "negative_literal": (OK, 2),
-    "negative_literal_copy4": (OK, 362), "negative_literal_overlap": (OK, 363), "big_literal": (BAD, 0), "copy4_negative_offset": (BAD, 0), "varint4": (OK, 5),
+    "negative_literal_copy4": (OK, 362), "negative_literal_overlap": (OK, 363),
+    "negative_literal_copy_across": (OK, 383), "negative_literal_two_back": (OK, 227),
+    "negative_literal_repeated": (OK, 948),
+    "big_literal": (BAD, 0), "copy4_negative_offset": (BAD, 0), "varint4": (OK, 5),
     "varint_only": (OK, 0), "offset_zero": (BAD, 0), "offset_past_output": (BAD, 0),
     "truncated_literal": (BAD, 0), "length_mismatch": (BAD, 0),
 }
 
 
 
-def kernel_data():
-    """{label: output} where the CUDA kernel's data differs from the JAX
-    path's: the stream-order result of ``negative_literal_overlap``."""
-    lit = np.random.default_rng(17).integers(0, 256, 400, dtype=np.uint8).tobytes()
-    out = bytearray(lit[:300] + b"Z")
-    out[299:] = lit[44:108]  # copy4 of 64 at offset 255 from 299
-    return {"negative_literal_overlap": bytes(out)}
+def window_cases(rng):
+    """``torch_lz4_cases.window_cases`` with the Snappy oracle, and the long
+    row's stream ending at a copy1 tag whose offset byte lies past the row
+    and is read from the row's first byte (as ``wrap``, but past a 4 KB
+    window), so it decodes."""
+    rows = window_rows(rng)
+    out = lz4_window_cases(rows, snappy_compress_oracle)
+    data = rows["long"]
+    body = snappy_compress_oracle(data.tobytes())[len(varint(data.size)):]
+    s = varint(data.size + 8) + body + bytes([1 | (4 << 2)])  # copy1 len 8
+    out.append(("long row, wrapped offset", batch([s], len(s))[0], np.array([len(s) + 1], np.int32),
+                data.size + 8))
+    return out
 
 
 def garbage_batch(rng, b: int, cmax: int, cap: int = C):

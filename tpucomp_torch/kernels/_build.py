@@ -47,7 +47,7 @@ SIGNATURES = {
     # data, lengths, nmp, dist, out, sizes, batch, row_bytes, out_row, stream
     "tc_snappy_encode": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _P],
     # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity, stream
-    "tc_snappy_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P],
+    "tc_snappy_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _P],
 }
 
 

@@ -12,9 +12,11 @@ decode             ``csrc/lz4_decode.cu``      ``tpucomp/kernels/lz_pallas.py::_
 The wrappers take CUDA tensors only and launch on PyTorch's current
 stream; they raise on anything the kernels do not take (a CPU tensor goes
 to the plain version through ``codecs.lz4.compress`` / ``decompress``,
-never through here).  Outputs are allocated with ``torch.zeros``, so bytes
-the kernels do not write are zero, as in the plain version.  ``LAUNCHES``
-counts the launches of each kernel.
+never through here).  The encode output is allocated with
+``torch.zeros``, so bytes the encode kernel does not write are zero, as in
+the plain version; the decode kernel writes every byte of its outputs
+(zeros past each row's length), so they are allocated with
+``torch.empty``.  ``LAUNCHES`` counts the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -84,11 +86,13 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, out_capacity: int):
     if not 1 <= out_capacity < 2**31:
         raise ValueError("out_capacity must be in [1, 2**31)")
     b, cmax = comp.shape
+    if cmax >= 2**30:
+        raise ValueError("the decode kernel takes rows below 2**30 bytes")
     comp = comp.contiguous()
     comp_sizes = comp_sizes.to(torch.int32).contiguous()
-    out = torch.zeros(b, out_capacity, dtype=torch.uint8, device=comp.device)
-    lengths = torch.zeros(b, dtype=torch.int32, device=comp.device)
-    status = torch.zeros(b, dtype=torch.int32, device=comp.device)
+    out = torch.empty(b, out_capacity, dtype=torch.uint8, device=comp.device)  # the kernel writes every byte
+    lengths = torch.empty(b, dtype=torch.int32, device=comp.device)
+    status = torch.empty(b, dtype=torch.int32, device=comp.device)
     if b == 0:
         return out, lengths, status
     with torch.cuda.device(comp.device):

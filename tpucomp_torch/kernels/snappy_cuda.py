@@ -12,9 +12,15 @@ decode             ``csrc/snappy_decode.cu``     ``tpucomp/kernels/snappy_pallas
 The wrappers take CUDA tensors only and launch on PyTorch's current
 stream; they raise on anything the kernels do not take (a CPU tensor goes
 to the plain version through ``codecs.snappy.compress`` / ``decompress``,
-never through here).  Outputs are allocated with ``torch.zeros``, so bytes
-the kernels do not write are zero, as in the plain version.  ``LAUNCHES``
-counts the launches of each kernel.
+never through here).  The encode output is allocated with
+``torch.zeros``, so bytes the encode kernel does not write are zero, as in
+the plain version; the decode kernels write every byte of their outputs
+(zeros past each row's length), so they are allocated with
+``torch.empty``.  The decode launches a second kernel that rewrites, by
+start, the rows whose output goes back (only crafted streams have them),
+with an int32 scratch of ``out_capacity`` entries a row, for up to
+``REWRITE_SCRATCH // out_capacity`` rows at once.  ``LAUNCHES`` counts
+the launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ from tpucomp_torch.core.sizing import snappy_max_compressed_chunk_size
 from tpucomp_torch.kernels import _build
 
 LAUNCHES = {"encode": 0, "decode": 0}
+# The int32 scratch the decode gives its rewrite by start, in entries: one
+# row's out_capacity for each row rewritten at once (at least one row)
+REWRITE_SCRATCH = 1 << 20
 
 
 def _check(*tensors: torch.Tensor) -> None:
@@ -83,17 +92,22 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, out_capacity: int):
     if not 1 <= out_capacity < 2**31:
         raise ValueError("out_capacity must be in [1, 2**31)")
     b, cmax = comp.shape
+    if cmax >= 2**30:
+        raise ValueError("the decode kernel takes rows below 2**30 bytes")
     comp = comp.contiguous()
     comp_sizes = comp_sizes.to(torch.int32).contiguous()
-    out = torch.zeros(b, out_capacity, dtype=torch.uint8, device=comp.device)
-    lengths = torch.zeros(b, dtype=torch.int32, device=comp.device)
-    status = torch.zeros(b, dtype=torch.int32, device=comp.device)
+    out = torch.empty(b, out_capacity, dtype=torch.uint8, device=comp.device)  # the kernels write every byte
+    lengths = torch.empty(b, dtype=torch.int32, device=comp.device)
+    status = torch.empty(b, dtype=torch.int32, device=comp.device)
     if b == 0:
         return out, lengths, status
+    # rows whose output goes back are rewritten by start, `slots` at a time
+    slots = max(1, min(-(-b // 32), REWRITE_SCRATCH // out_capacity))
+    scratch = torch.empty(slots * out_capacity, dtype=torch.int32, device=comp.device)
     with torch.cuda.device(comp.device):
         err = _build.load().tc_snappy_decode(
             comp.data_ptr(), comp_sizes.data_ptr(), out.data_ptr(), lengths.data_ptr(),
-            status.data_ptr(), b, cmax, out_capacity,
+            status.data_ptr(), b, cmax, out_capacity, scratch.data_ptr(), slots,
             torch.cuda.current_stream(comp.device).cuda_stream,
         )
     _raise_if(err, "decode")
