@@ -1,11 +1,13 @@
-// Host emulation of the CUDA subset that the LZ4 and Snappy decode kernels
-// use, so they can be built with g++ and checked on a machine without a
-// card (scripts/cuda_emu/check_lz_decode.py).  A launch runs its blocks one
+// Host emulation of the CUDA subset that the LZ4 and Snappy kernels use,
+// so they can be built with g++ and checked on a machine without a card
+// (scripts/cuda_emu/check_lz_decode.py, check_lz_encode.py).  A launch runs its blocks one
 // after another; a block's threads run as ucontext coroutines on one OS
 // thread; every warp intrinsic is an exchange at which all 32 lanes of the
 // warp meet (a warp whose lanes diverge there aborts), __syncthreads one at
 // which the block's threads meet.  Shared memory is a function's static
-// storage, which is right because blocks never overlap.  Nothing here
+// storage, which is right because blocks never overlap; dynamic shared memory
+// (`extern __shared__`, which the check scripts rewrite to
+// emu_dynamic_smem()) one static buffer.  Nothing here
 // models timing, the memory model or the compiler: it checks logic only.
 #pragma once
 #include <climits>
@@ -36,8 +38,13 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaFuncAttributePreferredSharedMemoryCarveout = 1, cudaSharedmemCarveoutMaxShared = 100 };
+enum { cudaSuccess = 0, cudaFuncAttributePreferredSharedMemoryCarveout = 1, cudaSharedmemCarveoutMaxShared = 100,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 2, cudaDevAttrMultiProcessorCount = 3 };
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 2; return 0; }  // two "SMs"
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
+inline uint8_t* emu_dynamic_smem() { alignas(16) static uint8_t buf[256 << 10]; return buf; }
 template <class F, class A, class V> cudaError_t cudaFuncSetAttribute(F, A, V) { return 0; }
 
 template <class A, class B> inline auto min(A a, B b) -> typename std::common_type<A, B>::type { return a < b ? a : b; }
@@ -84,6 +91,12 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   for (int i = 0; i < 32; ++i) m |= (unsigned)(s[(threadIdx.x & ~31u) + i] & 1) << i;
   return m;
 }
+inline unsigned __match_any_sync(unsigned, unsigned v) {
+  const unsigned long long* s = emu_exchange(v, false);
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) m |= (unsigned)(s[(threadIdx.x & ~31u) + i] == v) << i;
+  return m;
+}
 inline int __any_sync(unsigned mk, int p) { return __ballot_sync(mk, p) != 0; }
 inline int __all_sync(unsigned mk, int p) { return __ballot_sync(mk, p) == ~0u; }
 inline void __syncwarp(unsigned = ~0u) { emu_exchange(0, false); }
@@ -99,5 +112,6 @@ template <class K> struct emu_launcher {
 template <class K> emu_launcher<K> emu_launch(K k, emu_cfg c) { return {k, c}; }
 inline long long clock64() { static long long c = 0; return c += 3; }  // counts calls, not time
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) { auto o = *p; *p += v; return o; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { auto o = *p; *p += v; return o; }
 template <class T> inline int cudaMemcpyToSymbol(T& sym, const void* src, size_t n) { memcpy(&sym, src, n); return 0; }
 template <class T> inline int cudaMemcpyFromSymbol(void* dst, const T& sym, size_t n) { memcpy(dst, &sym, n); return 0; }

@@ -26,8 +26,6 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 from bench import load_corpus, runheavy_corpus  # noqa: E402
-from tpucomp_torch.codecs import lz77  # noqa: E402
-from tpucomp_torch.codecs import snappy as ts  # noqa: E402
 from tpucomp_torch.kernels import lz4_cuda as kl  # noqa: E402
 from tpucomp_torch.kernels import snappy_cuda as ks  # noqa: E402
 
@@ -62,11 +60,8 @@ def main():
         lengths = torch.full((B,), C, dtype=torch.int32, device="cuda")
         for corpus, gen in (("mixed", load_corpus), ("runheavy", runheavy_corpus)):
             data = torch.from_numpy(np.frombuffer(gen(B * C), np.uint8).reshape(B, C).copy()).cuda()
-            for codec, kern, tables in (
-                    ("lz4", kl, lambda d: lz77.candidate_tables(d, lengths)),
-                    ("snappy", ks, lambda d: lz77.candidate_tables(d, lengths, max_offset=ts.MAX_OFFSET,
-                                                                   end_margin=ts.MIN_MATCH))):
-                comp, sizes = kern.compress(data, lengths, *tables(data))
+            for codec, kern in (("lz4", kl), ("snappy", ks)):
+                comp, sizes = kern.compress(data, lengths)
                 out = torch.empty(B, C, dtype=torch.uint8, device="cuda")
                 ln = torch.empty(B, dtype=torch.int32, device="cuda")
                 st = torch.empty(B, dtype=torch.int32, device="cuda")

@@ -31,8 +31,6 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 from bench import load_corpus  # noqa: E402
-from tpucomp_torch.codecs import lz77  # noqa: E402
-from tpucomp_torch.codecs import snappy as ts  # noqa: E402
 from tpucomp_torch.kernels import lz4_cuda as kl  # noqa: E402
 from tpucomp_torch.kernels import snappy_cuda as ks  # noqa: E402
 
@@ -112,9 +110,8 @@ def main():
         data = torch.from_numpy(np.frombuffer(load_corpus(B * C), np.uint8).reshape(B, C).copy()).cuda()
         lengths = torch.full((B,), C, dtype=torch.int32, device="cuda")
         streams = {
-            "lz4": kl.compress(data, lengths, *lz77.candidate_tables(data, lengths)),
-            "snappy": ks.compress(data, lengths, *lz77.candidate_tables(
-                data, lengths, max_offset=ts.MAX_OFFSET, end_margin=ts.MIN_MATCH)),
+            "lz4": kl.compress(data, lengths),
+            "snappy": ks.compress(data, lengths),
         }
         scratch = torch.empty(C, dtype=torch.int32, device="cuda")
         for codec, prof in (("lz4", L.tc_prof_lz4_decode), ("snappy", L.tc_prof_snappy_decode)):

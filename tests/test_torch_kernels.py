@@ -125,8 +125,8 @@ def test_build_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert _build.library_path() != first
     assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
     assert sorted(p.name for p in _build._sources()) == ["a.cu"]
-    assert {"tc_cascaded_encode", "tc_cascaded_decode", "tc_lz4_encode", "tc_lz4_decode",
-            "tc_snappy_encode", "tc_snappy_decode"} == set(_build.SIGNATURES)
+    assert {"tc_cascaded_encode", "tc_cascaded_decode", "tc_lz_match_table", "tc_lz_match_table_ctas",
+            "tc_lz4_encode", "tc_lz4_decode", "tc_snappy_encode", "tc_snappy_decode"} == set(_build.SIGNATURES)
 
 
 def test_build_compiles_each_source_then_links_one_library(monkeypatch, tmp_path):

@@ -1,5 +1,5 @@
-"""The LZ4 CUDA kernels: held to their plain versions on the card, and
-their routing checked on the CPU.
+"""The LZ4 CUDA kernels (match table, encode, decode): held to their plain
+versions on the card, and their routing checked on the CPU.
 
 Tests marked ``cuda`` need an NVIDIA GPU and skip without one (a fixture
 decides, not the import).  On the card::
@@ -57,14 +57,21 @@ def _decode_both(comp, sizes, cap):
     return got
 
 
+def _compress_both(d, n, stride):
+    """The table kernel held to ``lz77.match_table``, then ``compress``
+    (both kernels) held to the plain encoder."""
+    assert torch.equal(kl.match_table(d, n, stride), lz77.match_table(d, n, stride))
+    comp, sizes = kl.compress(d, n, stride)
+    _equal((comp, sizes), tl._compress_plain(d, n, stride))
+    return comp, sizes
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ENCODE_CASES)
 def test_lz4_kernels_equal_plain(cuda, name):
     arr, lens, stride = _encode_case(name)
     d, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda)
-    nmp, dist = lz77.candidate_tables(d, n, stride)
-    comp, sizes = kl.compress(d, n, nmp, dist)
-    _equal((comp, sizes), tl._compress_plain(d, n, stride))
+    comp, sizes = _compress_both(d, n, stride)
     if stride == 1 and arr.shape[1] <= 65536:
         for i in range(len(lens)):
             assert comp[i, : int(sizes[i])].cpu().numpy().tobytes() == \
@@ -124,9 +131,7 @@ def test_lz4_random_batches_equal_plain(cuda, seed):
     rng = np.random.default_rng(1000 + seed)
     arr, lens, stride = cases.random_batch(rng)
     d, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda)
-    nmp, dist = lz77.candidate_tables(d, n, stride)
-    comp, sizes = kl.compress(d, n, nmp, dist)
-    _equal((comp, sizes), tl._compress_plain(d, n, stride))
+    comp, sizes = _compress_both(d, n, stride)
     c = arr.shape[1]
     out, olen, status = _decode_both(comp, sizes, c)
     assert torch.equal(olen, n) and not status.any()
@@ -137,13 +142,44 @@ def test_lz4_random_batches_equal_plain(cuda, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", range(6))
+def test_lz4_table_rows_equal_plain(cuda, case):
+    """The match-table kernel's edges: nearest occurrences exactly 65535 and
+    65536 back, at its 64K segment seams, in 70 KB and 16 MB rows; windows
+    that agree in three of four bytes; all-distinct windows; rows of n in
+    {0, 3, 4, 12, 13, 14}; a capacity of 37.  Strides 1, 2 and 4."""
+    label, arr, lens = cases.table_rows(np.random.default_rng(21))[case]
+    d, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda)
+    for stride in (1, 2, 4):
+        _compress_both(d, n, stride)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_lz4_cuda_compress_finds_its_own_candidates(cuda, monkeypatch):
+    """A CUDA compress runs the match-table kernel, never the torch
+    pre-pass (``lz77.candidate_tables`` and its sort)."""
+    arr, lens = cases.compress_rows(np.random.default_rng(5))[1:]
+    d, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda)
+    want = tl._compress_plain(d, n)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA compress ran the torch pre-pass")
+
+    for name in ("candidate_tables", "nearest_prev_occurrence"):
+        monkeypatch.setattr(lz77, name, refuse)
+    monkeypatch.setattr(torch, "sort", refuse)
+    _equal(tl.compress(d, n), want)
+
+
+@pytest.mark.cuda
 def test_lz4_launch_counters_move(cuda):
     before = dict(kl.LAUNCHES)
     data = (torch.arange(4 * 8192, device=cuda) % 251).to(torch.uint8).view(4, 8192)
     lengths = torch.full((4,), 8192, dtype=torch.int32, device=cuda)
     comp, sizes = tl.compress(data, lengths, LZ4Opts(data_type=DataType.UINT))
     out, nbytes, status = tl.decompress(comp, sizes, out_capacity=8192)
-    assert kl.LAUNCHES == {"encode": before["encode"] + 1, "decode": before["decode"] + 1}
+    assert kl.LAUNCHES == {k: before[k] + 1 for k in ("table", "encode", "decode")}
     assert torch.equal(out, data) and not status.any()
 
 
@@ -162,9 +198,13 @@ def test_lz4_wrappers_refuse_what_the_kernels_do_not_take():
     public entry point too)."""
     data = torch.zeros(2, 64, dtype=torch.uint8)
     lengths = torch.full((2,), 64, dtype=torch.int32)
-    tables = torch.zeros(2, 64, dtype=torch.int32)
+    table = torch.zeros(2, 64, dtype=torch.uint16)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kl.compress(data, lengths, tables, tables)
+        kl.compress(data, lengths)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kl.match_table(data, lengths, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kl.encode(data, lengths, table)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kl.decompress(data, lengths, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):

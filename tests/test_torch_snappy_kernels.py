@@ -1,5 +1,5 @@
-"""The Snappy CUDA kernels: held to their plain versions on the card, and
-their routing checked on the CPU.
+"""The Snappy CUDA kernels (match table, encode, decode): held to their
+plain versions on the card, and their routing checked on the CPU.
 
 Tests marked ``cuda`` need an NVIDIA GPU and skip without one (a fixture
 decides, not the import).  On the card::
@@ -48,8 +48,13 @@ def _encode_case(name):
     return dict((k, (a, n)) for k, a, n in cases.kernel_sizes(rng))[name]
 
 
-def _tables(d, n):
-    return lz77.candidate_tables(d, n, max_offset=ts.MAX_OFFSET, end_margin=ts.MIN_MATCH)
+def _compress_both(d, n):
+    """The table kernel held to ``lz77.match_table`` with the Snappy
+    limits, then ``compress`` (both kernels) held to the plain encoder."""
+    assert torch.equal(ks.match_table(d, n), lz77.match_table(d, n, 1, ts.MAX_OFFSET, ts.MIN_MATCH))
+    comp, sizes = ks.compress(d, n)
+    _equal((comp, sizes), ts._compress_plain(d, n))
+    return comp, sizes
 
 
 def _decode_both(comp, sizes, cap):
@@ -63,8 +68,7 @@ def _decode_both(comp, sizes, cap):
 def test_snappy_kernels_equal_plain(cuda, name):
     arr, lens = _encode_case(name)
     d, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda)
-    comp, sizes = ks.compress(d, n, *_tables(d, n))
-    _equal((comp, sizes), ts._compress_plain(d, n))
+    comp, sizes = _compress_both(d, n)
     if arr.shape[1] <= 1 << 17:
         for i in range(len(lens)):
             assert comp[i, : int(sizes[i])].cpu().numpy().tobytes() == \
@@ -142,8 +146,7 @@ def test_snappy_random_batches_equal_plain(cuda, seed):
     rng = np.random.default_rng(5000 + seed)
     arr, lens = cases.random_batch(rng, 40000)
     d, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda)
-    comp, sizes = ks.compress(d, n, *_tables(d, n))
-    _equal((comp, sizes), ts._compress_plain(d, n))
+    comp, sizes = _compress_both(d, n)
     c = arr.shape[1]
     out, olen, status = _decode_both(comp, sizes, c)
     assert torch.equal(olen, n) and not status.any()
@@ -154,13 +157,42 @@ def test_snappy_random_batches_equal_plain(cuda, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+def test_snappy_table_rows_equal_plain(cuda, case):
+    """The match-table kernel's edges with the Snappy limits: nearest
+    occurrences exactly 32768 and 32769 back, at its 64K segment seams, in
+    70 KB and 16 MB rows; windows that agree in three of four bytes; rows
+    of n in {0, 3, 4, 5}; a capacity of 37."""
+    label, arr, lens = cases.table_rows(np.random.default_rng(22))[case]
+    _compress_both(torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_snappy_cuda_compress_finds_its_own_candidates(cuda, monkeypatch):
+    """A CUDA compress runs the match-table kernel, never the torch
+    pre-pass (``lz77.candidate_tables`` and its sort)."""
+    arr, lens = cases.compress_rows(np.random.default_rng(5))[1:]
+    d, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda)
+    want = ts._compress_plain(d, n)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA compress ran the torch pre-pass")
+
+    for name in ("candidate_tables", "nearest_prev_occurrence"):
+        monkeypatch.setattr(lz77, name, refuse)
+    monkeypatch.setattr(torch, "sort", refuse)
+    _equal(ts.compress(d, n), want)
+
+
+@pytest.mark.cuda
 def test_snappy_launch_counters_move(cuda):
     before = dict(ks.LAUNCHES)
     data = (torch.arange(4 * 8192, device=cuda) % 251).to(torch.uint8).view(4, 8192)
     lengths = torch.full((4,), 8192, dtype=torch.int32, device=cuda)
     comp, sizes = ts.compress(data, lengths)
     out, nbytes, status = ts.decompress(comp, sizes, out_capacity=8192)
-    assert ks.LAUNCHES == {"encode": before["encode"] + 1, "decode": before["decode"] + 1}
+    assert ks.LAUNCHES == {k: before[k] + 1 for k in ("table", "encode", "decode")}
     assert torch.equal(out, data) and not status.any()
 
 
@@ -179,9 +211,13 @@ def test_snappy_wrappers_refuse_what_the_kernels_do_not_take():
     public entry points too)."""
     data = torch.zeros(2, 64, dtype=torch.uint8)
     lengths = torch.full((2,), 64, dtype=torch.int32)
-    tables = torch.zeros(2, 64, dtype=torch.int32)
+    table = torch.zeros(2, 64, dtype=torch.uint16)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        ks.compress(data, lengths, tables, tables)
+        ks.compress(data, lengths)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ks.match_table(data, lengths)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ks.encode(data, lengths, table)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ks.decompress(data, lengths, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -219,6 +219,58 @@ def big_chunk(rng, c: int = 16 << 20):
     return batch([out], c)
 
 
+def window_edge_row(rng, c: int, max_offset: int):
+    """(uint8[1, c], int32[1]): random bytes with 16-byte copies from
+    exactly ``max_offset`` back (the window's last candidate) and
+    ``max_offset + 1`` back (just past it), and short-distance copies,
+    planted at and around the 64K boundaries of the card's match-table
+    segments (and one copy reaching back across one)."""
+    out = rng.integers(0, 256, c, dtype=np.uint8)
+    seams = [s for s in range(1 << 16, c, 1 << 16)][:6] + [max_offset + 700, c - 40]
+    for s in seams:
+        for at, dist in ((s - 2, max_offset), (s + 20, max_offset + 1), (s + 3, 9), (s - 30, 1 << 12)):
+            if dist <= at and at + 16 <= c:
+                out[at : at + 16] = out[at - dist : at - dist + 16]
+    return batch([out], c)
+
+
+def collision_row(rng, c: int):
+    """(uint8[1, c], int32[1]): windows that agree in three of their four
+    bytes: every fourth byte random from a small alphabet, the others
+    fixed, so each byte of the sort's key must separate them, and equal
+    windows recur at many distances."""
+    out = np.tile(np.frombuffer(b"\x00ab", np.uint8), c // 3 + 1)[:c].copy()
+    out[::4] = rng.integers(0, 6, (c + 3) // 4, dtype=np.uint8)
+    return batch([out], c)
+
+
+def unique_windows(rng, c: int) -> np.ndarray:
+    """c random bytes in which no 4-byte window repeats: one literal run,
+    and a sort in which every key is distinct."""
+    d = rng.integers(0, 256, c, dtype=np.uint8)
+    while True:
+        w = d[:-3].astype(np.int64) | d[1:-2].astype(np.int64) << 8 | d[2:-1].astype(np.int64) << 16 \
+            | d[3:].astype(np.int64) << 24
+        _, first, counts = np.unique(w, return_index=True, return_counts=True)
+        if (counts == 1).all():
+            return d
+        d[first[counts > 1]] ^= rng.integers(1, 256, int((counts > 1).sum()), dtype=np.uint8)
+
+
+def table_rows(rng):
+    """(label, uint8[B, C], int32[B]) for the match-table kernel beside
+    the encode cases: the window edges of LZ4 at 70 KB and in a 16 MB chunk,
+    the collision row, all-distinct windows, and rows of n in {0, 3, 4, 12,
+    13, 14} bytes and capacities that are no multiple of 4 or 32."""
+    tiny = [rng.integers(0, 3, n).astype(np.uint8) for n in (0, 3, 4, 12, 13, 14)]
+    return [("window edge 70 KB", *window_edge_row(rng, 70000, 65535)),
+            ("window edge 16 MB", *window_edge_row(rng, 16 << 20, 65535)),
+            ("collisions 70 KB", *collision_row(rng, 70001)),
+            ("distinct windows 128 KB", *batch([unique_windows(rng, 1 << 17)], 1 << 17)),
+            ("tiny rows", *batch(tiny, 14)),
+            ("odd capacity", *batch([rng.integers(0, 4, 37).astype(np.uint8), b"abcabcabc" * 4], 37))]
+
+
 def random_row(rng, n: int) -> np.ndarray:
     """n bytes of random segments: runs, random bytes, text, zeros, short
     periods and copies of earlier bytes at offsets near and past 65535."""

@@ -19,7 +19,7 @@ import os
 import numpy as np
 
 from oracles.snappy_oracle import snappy_compress_oracle
-from torch_lz4_cases import batch, damage, profiles, random_row, window_rows
+from torch_lz4_cases import batch, collision_row, damage, profiles, random_row, unique_windows, window_edge_row, window_rows
 from torch_lz4_cases import window_cases as lz4_window_cases
 from tpucomp_torch.core.sizing import snappy_max_compressed_chunk_size as snappy_max
 
@@ -81,16 +81,17 @@ def window_row():
     return batch([base], 65536)
 
 
-def unique_windows(rng, c: int) -> np.ndarray:
-    """c random bytes in which no 4-byte window repeats: one literal run."""
-    d = rng.integers(0, 256, c, dtype=np.uint8)
-    while True:
-        w = d[:-3].astype(np.int64) | d[1:-2].astype(np.int64) << 8 | d[2:-1].astype(np.int64) << 16 \
-            | d[3:].astype(np.int64) << 24
-        _, first, counts = np.unique(w, return_index=True, return_counts=True)
-        if (counts == 1).all():
-            return d
-        d[first[counts > 1]] ^= rng.integers(1, 256, int((counts > 1).sum()), dtype=np.uint8)
+def table_rows(rng):
+    """(label, uint8[B, C], int32[B]) for the match-table kernel with the
+    Snappy limits: the window edges (32768 back, and 32769 just past it) at
+    70 KB and in a 16 MB chunk, the collision row, and rows of n in {0, 3,
+    4, 5} bytes and a capacity that is no multiple of 4 or 32."""
+    tiny = [rng.integers(0, 3, n).astype(np.uint8) for n in (0, 3, 4, 5)]
+    return [("window edge 70 KB", *window_edge_row(rng, 70000, 32768)),
+            ("window edge 16 MB", *window_edge_row(rng, 16 << 20, 32768)),
+            ("collisions 70 KB", *collision_row(rng, 70001)),
+            ("tiny rows", *batch(tiny, 5)),
+            ("odd capacity", *batch([rng.integers(0, 4, 37).astype(np.uint8), b"abcabcabc" * 4], 37))]
 
 
 def large_rows(rng):

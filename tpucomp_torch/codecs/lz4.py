@@ -11,10 +11,10 @@ emits the same bytes as the JAX package's Pallas kernel
 (``tpucomp.kernels.lz_pallas.compress``) and the uncapped sequential
 oracle, not those of its XLA path, which clamps parses to 4 KB blocks.
 
-  - the candidate tables (``lz77.candidate_tables``) are torch ops on
-    either device;
-  - a CUDA batch then runs the encode kernel (``kernels/lz4_cuda.py``);
-  - a CPU batch runs the plain version: exact match lengths
+  - a CUDA batch runs the match-table kernel and the encode kernel
+    (``kernels/lz4_cuda.py``), which find their candidates on the card;
+  - a CPU batch runs the plain version: the candidate tables
+    (``lz77.candidate_tables``), exact match lengths
     (``lz77.match_lengths``), ``lz77.greedy_parse`` with the LZ4 end
     rules, and position-driven emission (``_emit``).
 
@@ -222,7 +222,7 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: LZ4Opts | None = N
     ``lz4_max_compressed_chunk_size(C)``; an empty row compresses to 0
     bytes.  ``opts.data_type`` sets the match granularity (``opts=None``:
     bytes).  A CPU batch takes the plain formulation, a CUDA batch the
-    encode kernel.
+    match-table and encode kernels.
     """
     stride = _stride(opts)
     if data.dtype != torch.uint8 or data.dim() != 2:
@@ -232,8 +232,7 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: LZ4Opts | None = N
         return _compress_plain(data, lengths, stride)
     from tpucomp_torch.kernels import lz4_cuda
 
-    nmp, dist = lz77.candidate_tables(data, lengths, stride)
-    return lz4_cuda.compress(data, lengths, nmp, dist)
+    return lz4_cuda.compress(data, lengths, stride)
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: LZ4Opts | None = None,

@@ -7,9 +7,10 @@ int32[B] valid lengths.
     ``(4-byte window, invalid flag, position)`` gives the exact nearest
     previous occurrence of every position, with no hash collisions
     (``nearest_prev_occurrence``); ``candidate_tables`` turns it into the
-    encoders' inputs, with each format's window and end limits.  This
-    pre-pass is torch ops on either device, as the JAX package's is XLA
-    outside its Pallas kernel.
+    plain encoders' inputs, with each format's window and end limits.
+    ``match_table`` is the plain version of the card's match-table kernel
+    (``csrc/lz_match_table.cu``), which the CUDA encoders read instead:
+    one uint16 distance per position, 0 for none.
   - match lengths (plain version only): exact, unbounded common-prefix
     lengths by a greedy walk over prefix-doubled suffix-id levels
     (``match_lengths``).
@@ -101,6 +102,19 @@ def candidate_tables(data: torch.Tensor, n: torch.Tensor, stride: int = 1, j: to
     cand = (j >= 0) & (dist <= max_offset) & (i[None, :] <= n.to(torch.int64)[:, None] - end_margin)
     nmp = rev_cummin(torch.where(cand, i.to(torch.int32), INF).to(torch.int32))
     return nmp, dist.to(torch.int32)
+
+
+def match_table(data: torch.Tensor, n: torch.Tensor, stride: int = 1, max_offset: int = MAX_OFFSET,
+                end_margin: int = LAST_VALID_MATCH) -> torch.Tensor:
+    """uint16[B, C]: the distance i - j to the nearest previous occurrence
+    j of the window at i (``nearest_prev_occurrence``) where it is a
+    candidate, at most ``max_offset`` back and i <= n - end_margin, else 0
+    (a distance is never 0).  The limits are ``candidate_tables``'."""
+    j = nearest_prev_occurrence(data, n, stride)
+    i = _iota(data.shape[1], data.device)
+    dist = i - j
+    keep = (j >= 0) & (dist <= max_offset) & (i[None, :] <= n.to(torch.int64)[:, None] - end_margin)
+    return torch.where(keep, dist, 0).to(torch.uint16)
 
 
 def suffix_id_levels(data: torch.Tensor, max_h: int):

@@ -13,10 +13,11 @@ Pallas kernel (``tpucomp.kernels.snappy_pallas.compress``) and the
 sequential oracle, not those of its XLA path, which clamps parses to 4 KB
 blocks.  An empty chunk compresses to one byte, ``varint(0)``.
 
-  - the candidate tables (``lz77.candidate_tables``, window 32768, the
-    last candidate at ``n - 4``) are torch ops on either device;
-  - a CUDA batch then runs the encode kernel (``kernels/snappy_cuda.py``);
-  - a CPU batch runs the plain version: exact match lengths
+  - a CUDA batch runs the match-table kernel (window 32768, the last
+    candidate at ``n - 4``) and the encode kernel
+    (``kernels/snappy_cuda.py``), which find their candidates on the card;
+  - a CPU batch runs the plain version: the candidate tables
+    (``lz77.candidate_tables``, same limits), exact match lengths
     (``lz77.match_lengths``), ``lz77.greedy_parse`` (Snappy has no end
     rules) and position-driven emission (``_emit``).
 
@@ -266,7 +267,8 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: SnappyOpts | None 
     data: uint8[B, C]; lengths: int32[B], clamped to [0, C].  Returns
     (comp uint8[B, SNAPPYMAX], comp_sizes int32[B]), SNAPPYMAX =
     ``snappy_max_compressed_chunk_size(C)``.  ``opts`` is reserved.  A CPU
-    batch takes the plain formulation, a CUDA batch the encode kernel.
+    batch takes the plain formulation, a CUDA batch the match-table and
+    encode kernels.
     """
     if data.dtype != torch.uint8 or data.dim() != 2:
         raise ValueError("data must be uint8[B, C]")
@@ -275,8 +277,7 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: SnappyOpts | None 
         return _compress_plain(data, lengths)
     from tpucomp_torch.kernels import snappy_cuda
 
-    nmp, dist = lz77.candidate_tables(data, lengths, max_offset=MAX_OFFSET, end_margin=MIN_MATCH)
-    return snappy_cuda.compress(data, lengths, nmp, dist)
+    return snappy_cuda.compress(data, lengths)
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: SnappyOpts | None = None,

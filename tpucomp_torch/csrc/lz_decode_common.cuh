@@ -27,7 +27,7 @@
 //   - copy_match: a match out[o + k] = out[o - off + k mod off] from its
 //     period, with one remainder per lane per match, not per byte; a
 //     period of up to 32 bytes is held in registers.
-//   - zero_fill: the bytes past a row's output, 16 bytes a lane.
+//   - zero_fill (lz4_common.cuh): the bytes past a row's output, 16 bytes a lane.
 //
 // Positions are 32-bit: the wrappers take rows below 2**30 bytes and
 // outputs below 2**31.
@@ -41,6 +41,7 @@ using tpucomp_lz4::kFull;  // the launch shape of lz4_common.cuh: 4 warps a CTA,
 using tpucomp_lz4::kMinMatch;
 using tpucomp_lz4::kThreads;
 using tpucomp_lz4::kWarpsPerBlock;
+using tpucomp_lz4::zero_fill;
 
 constexpr int kWin = 2048;    // stream bytes staged per warp
 constexpr int kWinPad = 16;   // slack for the unaligned 4-byte reads at the window's end
@@ -145,19 +146,6 @@ __device__ __forceinline__ void copy_match(Out& out, int o, int off, int len, in
     r += 32;
     if (r >= (unsigned)off) r -= off;
   }
-}
-
-// out[from, to) = 0 (device memory only: nothing reads these bytes back).
-__device__ __forceinline__ void zero_fill(uint8_t* out, int from, int to, int lane) {
-  if (from >= to) return;
-  const int head = min(to - from, (int)((16 - (reinterpret_cast<uintptr_t>(out + from) & 15)) & 15));
-  if (lane < head) out[from + lane] = 0;
-  const int i = from + head;
-  const int vecs = (to - i) >> 4;
-  uint4* v = reinterpret_cast<uint4*>(out + i);
-  for (int k = lane; k < vecs; k += 32) v[k] = make_uint4(0, 0, 0, 0);
-  const int tail = i + 16 * vecs;
-  if (lane < to - tail) out[tail + lane] = 0;
 }
 
 // Writes one batch of parsed elements, element k in lane k when `mine`:

@@ -6,156 +6,138 @@
 // streams are equal byte for byte, and equal to the JAX package's Pallas
 // kernel and to the sequential oracle (tests/oracles/snappy_oracle.py).
 //
-// Input: the chunk bytes and the candidate tables of the torch pre-pass
-// (tpucomp_torch/codecs/lz77.py::candidate_tables with the Snappy limits):
-// nmp[i], the first match candidate at or after i (1 << 30 if none), and
-// dist[i], the distance to the exact nearest previous occurrence of the
-// 4-byte window at i.  A candidate starts at most at n - 4, at most 32768
-// back.
+// Input: the chunk bytes and their match table (lz_match_table.cu, with
+// the Snappy limits: a candidate at most 32768 back and at most at
+// n - 4), uint16, 0 where a position is no candidate.
 //
-// Design: one warp per chunk, as the LZ4 encoder (lz4_encode.cu).  The
-// warp writes the varint of n, then from anchor a reads q = nmp[a];
-// q > n - 4 ends the parse.  It extends the match at q exactly and
-// without bound, comparing the input with itself 128 bytes a step (4 per
-// lane; a ballot and __ffs find the first difference), up to the chunk's
-// end n - q (Snappy has no end rules).  It then emits the literal header
-// (1 byte for runs of at most 60 bytes, else the tag 60 + k - 1 and k LE
-// bytes of the length - 1, k = 1..3), the literals [a, q), and the copy
-// elements: k64 copy2(64), a copy2(60) when the remainder is 65-67, and a
-// final copy1 (length <= 11, offset < 2048) or copy2.  The next anchor is
-// q + m; the literals [a, n) close the stream.  Byte runs are written one
-// byte per lane; the output row is zero past the stream (the wrapper
-// allocates it with torch.zeros).
+// Design (shared machinery in lz_encode_common.cuh, as the LZ4 encoder):
+// one warp per chunk; the walk reads the table 32 positions at once,
+// finds the next candidate by a ballot, and hops between candidates by
+// shuffles, each lane having extended the match at its own position up
+// to 16 bytes alone; longer matches take the warp-cooperative extension
+// (exact and unbounded, up to the chunk's end n - q: Snappy has no end
+// rules).  The warp first writes the varint of n.  A batch of up to 32
+// sequences is then emitted at once: each lane computes its sequence's
+// size, a prefix sum gives the output offsets, and each lane writes its
+// literal header (1 byte for runs of at most 60 bytes, else the tag
+// 60 + k - 1 and k LE bytes of the length - 1, k = 1..3) and its copy
+// elements (k64 copy2(64), a copy2(60) when the remainder is 65-67, and a
+// final copy1 (length <= 11, offset < 2048) or copy2); runs of more than
+// 4 copy2(64) go warp-wide, and the batch's literals are laid end to end
+// a byte per lane.  The literals [a, n) close the stream.  The kernel
+// writes every byte of the output row: zeros past the stream.
 //
-// What bounds it on the H100: the latency of the parse's dependent loads
-// (nmp, then dist, then the compared bytes) per element, with one warp
-// per chunk; device-memory bytes (the chunk, two int32 tables, the
-// stream) are far from the limit.  The design hides latency only by the
-// number of chunks in flight (one warp each); staging the tables in
-// shared memory is later work.
+// What bounds it on the H100: the walk's dependent steps per sequence,
+// one warp per chunk, and the byte-per-lane copies of the literals, as
+// for LZ4.  Device-memory bytes are far from the limit.  On an H100 at 700 W
+// the longest chunk of the mixed batch walks at 380 ns a sequence with 8
+// warps per SM and 526 with 31 (chip_smoke.py phase 14, PERF.md): mostly
+// latency, some issue slots at the full batch.
 //
 // Covers chunks up to 16 MB (a literal header holds at most 2**24 bytes;
 // positions fit int32).
 
-#include "lz4_common.cuh"
+#include "lz_encode_common.cuh"
 
 namespace tpucomp_snappy {
 namespace {
 
-using tpucomp_lz4::kFull;
-using tpucomp_lz4::kMinMatch;
-using tpucomp_lz4::kThreads;
-using tpucomp_lz4::kWarpsPerBlock;
-using tpucomp_lz4::warp_chunk;
+using namespace tpucomp_lze;
+
+constexpr int kOwnCopies = 4;  // copy2(64) runs a lane writes itself; longer ones go warp-wide
 
 struct EncodeParams {
   const uint8_t* data;
   const int32_t* lengths;
-  const int32_t* nmp;
-  const int32_t* dist;
+  const uint16_t* table;
   uint8_t* out;
   int32_t* sizes;
   long long batch, row_bytes, out_row;
 };
 
-// One chunk's output stream, written by the whole warp.
-struct Writer {
+// Writes batches of sequences at out[o...] (see encode_walk): each as a
+// literal element (none for ll = 0) and the copy elements of its match.
+struct Emitter {
+  const uint8_t* d;
   uint8_t* out;
-  long long o;
+  int o;
   int lane;
 
-  __device__ void byte(int v) {
-    if (lane == 0) out[o] = (uint8_t)v;
-    ++o;
-  }
-
-  __device__ void varint(unsigned v) {
-    for (; v >= 128; v >>= 7) byte((int)(v & 0x7f) | 0x80);
-    byte((int)v);
-  }
-
-  // a literal element of the len >= 1 bytes at src
-  __device__ void literal(const uint8_t* src, long long len) {
-    const long long v = len - 1;
-    if (len <= 60) {
-      byte((int)(v << 2));
-    } else {
-      const int extra = len <= 256 ? 1 : (len <= 65536 ? 2 : 3);
-      byte((59 + extra) << 2);
-      for (int k = 0; k < extra; ++k) byte((int)((v >> (8 * k)) & 0xff));
-    }
-    for (long long k = lane; k < len; k += 32) out[o + k] = src[k];
-    o += len;
-  }
-
-  // the copy elements of a match of ml >= 4 bytes at offset off in [1, 32768]
-  __device__ void match(int off, long long ml) {
-    const long long k64 = ml >= 68 ? (ml - 4) / 64 : 0;
+  __device__ void operator()(int lit, int ll, int off, int m, int count, bool) {
+    const bool mine = lane < count;
+    if (!mine) ll = m = 0;
+    const int extra = ll <= 60 ? 0 : (ll <= 256 ? 1 : (ll <= 65536 ? 2 : 3));
+    const int hdr = ll ? 1 + extra : 0;
+    const int k64 = m >= 68 ? (m - 4) / 64 : 0;
+    int fin = m - 64 * k64;
+    const bool c60 = fin > 64;
+    if (c60) fin -= 60;
+    const bool c1 = fin <= 11 && off < 2048;
+    const int copies = m ? 3 * k64 + (c60 ? 3 : 0) + (c1 ? 2 : 3) : 0;
+    const int size = hdr + ll + copies;
+    const int end = warp_inclusive(size, lane);
+    const int at = o + end - size;
     const int lo = off & 0xff, hi = off >> 8;
-    for (long long k = lane; k < 3 * k64; k += 32) {
-      const int r = (int)(k % 3);
-      out[o + k] = (uint8_t)(r == 0 ? (63 << 2) | 2 : (r == 1 ? lo : hi));
+    if (ll) {
+      const int v = ll - 1;
+      out[at] = (uint8_t)(ll <= 60 ? v << 2 : (59 + extra) << 2);
+      for (int k = 0; k < extra; ++k) out[at + 1 + k] = (uint8_t)((v >> (8 * k)) & 0xff);
     }
-    o += 3 * k64;
-    long long fin = ml - 64 * k64;
-    if (fin > 64) {
-      byte((59 << 2) | 2);
-      byte(lo);
-      byte(hi);
-      fin -= 60;
+    int co = at + hdr + ll;  // the copy elements
+    for (unsigned big = __ballot_sync(kFull, k64 > kOwnCopies); big; big &= big - 1) {
+      const int e = __ffs(big) - 1;
+      const int eco = __shfl_sync(kFull, co, e), ek = __shfl_sync(kFull, k64, e);
+      const int elo = __shfl_sync(kFull, lo, e), ehi = __shfl_sync(kFull, hi, e);
+      for (int k = lane; k < 3 * ek; k += 32) {
+        const int r = k % 3;
+        out[eco + k] = (uint8_t)(r == 0 ? (63 << 2) | 2 : (r == 1 ? elo : ehi));
+      }
     }
-    if (fin <= 11 && off < 2048) {
-      byte(1 | (int)((fin - 4) << 2) | (hi << 5));
-      byte(lo);
-    } else {
-      byte((int)((fin - 1) << 2) | 2);
-      byte(lo);
-      byte(hi);
+    if (m) {
+      if (k64 <= kOwnCopies)
+        for (int k = 0; k < k64; ++k) {
+          out[co + 3 * k] = (uint8_t)((63 << 2) | 2);
+          out[co + 3 * k + 1] = (uint8_t)lo;
+          out[co + 3 * k + 2] = (uint8_t)hi;
+        }
+      co += 3 * k64;
+      if (c60) {
+        out[co] = (uint8_t)((59 << 2) | 2);
+        out[co + 1] = (uint8_t)lo;
+        out[co + 2] = (uint8_t)hi;
+        co += 3;
+      }
+      if (c1) {
+        out[co] = (uint8_t)(1 | ((fin - 4) << 2) | (hi << 5));
+        out[co + 1] = (uint8_t)lo;
+      } else {
+        out[co] = (uint8_t)(((fin - 1) << 2) | 2);
+        out[co + 1] = (uint8_t)lo;
+        out[co + 2] = (uint8_t)hi;
+      }
     }
+    copy_flat(out, d, lit, at + hdr, ll, lane);
+    o += __shfl_sync(kFull, end, 31);
   }
 };
-
-// Length of the match at q, offset off: the first k >= 4 with
-// d[q + k] != d[q - off + k] or k == limit.  The first 4 bytes are equal
-// by construction of the tables.
-__device__ int extend(const uint8_t* d, int q, int off, int limit, int lane) {
-  for (int m = kMinMatch;; m += 128) {
-    int first = -1;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = m + 4 * lane + j;
-      const bool stop = k >= limit || d[q + k] != d[q - off + k];
-      if (stop && first < 0) first = 4 * lane + j;
-    }
-    const unsigned hit = __ballot_sync(kFull, first >= 0);
-    if (hit) return m + __shfl_sync(kFull, first, __ffs(hit) - 1);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads) snappy_encode_kernel(EncodeParams p) {
   const long long b = warp_chunk(p.batch);
   if (b < 0) return;
   const int lane = threadIdx.x & 31;
   const uint8_t* d = p.data + b * p.row_bytes;
-  const int32_t* nmp = p.nmp + b * p.row_bytes;
-  const int32_t* dist = p.dist + b * p.row_bytes;
   // the codec clamps lengths to the row; so does the kernel, which then
   // never reads past a row whoever calls it
   const int n = (int)min((long long)max(p.lengths[b], 0), p.row_bytes);
-  Writer w{p.out + b * p.out_row, 0, lane};
-  w.varint((unsigned)n);
-  int a = 0;  // anchor: the first byte not yet emitted
-  while (a <= n - kMinMatch) {
-    const int q = nmp[a];
-    if (q > n - kMinMatch) break;
-    const int off = dist[q];
-    const int m = extend(d, q, off, n - q, lane);
-    if (q > a) w.literal(d + a, q - a);
-    w.match(off, m);
-    a = q + m;
+  Emitter emit{d, p.out + b * p.out_row, 0, lane};
+  for (unsigned v = (unsigned)n;; v >>= 7) {  // the varint of n
+    if (lane == 0) emit.out[emit.o] = (uint8_t)(v >= 128 ? (v & 0x7f) | 0x80 : v);
+    ++emit.o;
+    if (v < 128) break;
   }
-  if (n > a) w.literal(d + a, n - a);
-  if (lane == 0) p.sizes[b] = (int32_t)w.o;
+  if (n > 0) encode_walk(d, p.table + b * p.row_bytes, n, kMinMatch, 0, lane, emit);
+  zero_fill(emit.out, emit.o, (int)p.out_row, lane);
+  if (lane == 0) p.sizes[b] = (int32_t)emit.o;
 }
 
 }  // namespace
@@ -163,14 +145,13 @@ __global__ void __launch_bounds__(kThreads) snappy_encode_kernel(EncodeParams p)
 
 // Launches the encode kernel on `stream`; returns cudaGetLastError() (0 on
 // success).
-extern "C" int tc_snappy_encode(const void* data, const void* lengths, const void* nmp,
-                                const void* dist, void* out, void* sizes, long long batch,
-                                long long row_bytes, long long out_row, void* stream) {
+extern "C" int tc_snappy_encode(const void* data, const void* lengths, const void* table, void* out,
+                                void* sizes, long long batch, long long row_bytes, long long out_row,
+                                void* stream) {
   using namespace tpucomp_snappy;
   EncodeParams p{static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
-                 static_cast<const int32_t*>(nmp),   static_cast<const int32_t*>(dist),
-                 static_cast<uint8_t*>(out),         static_cast<int32_t*>(sizes),
-                 batch, row_bytes, out_row};
+                 static_cast<const uint16_t*>(table), static_cast<uint8_t*>(out),
+                 static_cast<int32_t*>(sizes), batch, row_bytes, out_row};
   const unsigned blocks = (unsigned)((batch + kWarpsPerBlock - 1) / kWarpsPerBlock);
   snappy_encode_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();

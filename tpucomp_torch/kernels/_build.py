@@ -40,12 +40,16 @@ SIGNATURES = {
     # comp, comp_sizes, out, out_bytes, status, batch, row_bytes,
     # out_capacity, width, dtype, elems, k, nr, nd, bp, stream
     "tc_cascaded_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P],
-    # data, lengths, nmp, dist, out, sizes, batch, row_bytes, out_row, stream
-    "tc_lz4_encode": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _P],
+    # row_bytes -> CTAs of the table kernel the device holds at once
+    "tc_lz_match_table_ctas": [_L],
+    # data, lengths, out, scratch, batch, row_bytes, stride, max_offset, end_margin, grid, stream
+    "tc_lz_match_table": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
+    # data, lengths, table, out, sizes, batch, row_bytes, out_row, stream
+    "tc_lz4_encode": [_P, _P, _P, _P, _P, _L, _L, _L, _P],
     # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity, stream
     "tc_lz4_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P],
-    # data, lengths, nmp, dist, out, sizes, batch, row_bytes, out_row, stream
-    "tc_snappy_encode": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _P],
+    # data, lengths, table, out, sizes, batch, row_bytes, out_row, stream
+    "tc_snappy_encode": [_P, _P, _P, _P, _P, _L, _L, _L, _P],
     # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity, stream
     "tc_snappy_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _P],
 }

@@ -3,6 +3,8 @@
 =================  ============================  ==========================================================
 kernel             source                        replaces (TPU kernel) / plain PyTorch version
 =================  ============================  ==========================================================
+match table        ``csrc/lz_match_table.cu``    the XLA pre-pass ``tpucomp/codecs/lz77.py::nearest_prev_occurrence``
+                                                 / ``codecs/lz77.py::match_table`` (``kernels/lz77_cuda.py``)
 encode             ``csrc/snappy_encode.cu``     ``tpucomp/kernels/snappy_pallas.py::_snappy_encode_kernel``
                                                  / ``codecs/snappy.py::_compress_plain``
 decode             ``csrc/snappy_decode.cu``     ``tpucomp/kernels/snappy_pallas.py::_snappy_decode_kernel``
@@ -12,15 +14,14 @@ decode             ``csrc/snappy_decode.cu``     ``tpucomp/kernels/snappy_pallas
 The wrappers take CUDA tensors only and launch on PyTorch's current
 stream; they raise on anything the kernels do not take (a CPU tensor goes
 to the plain version through ``codecs.snappy.compress`` / ``decompress``,
-never through here).  The encode output is allocated with
-``torch.zeros``, so bytes the encode kernel does not write are zero, as in
-the plain version; the decode kernels write every byte of their outputs
-(zeros past each row's length), so they are allocated with
-``torch.empty``.  The decode launches a second kernel that rewrites, by
-start, the rows whose output goes back (only crafted streams have them),
-with an int32 scratch of ``out_capacity`` entries a row, for up to
-``REWRITE_SCRATCH // out_capacity`` rows at once.  ``LAUNCHES`` counts
-the launches of each wrapper.
+never through here).  ``compress`` is the match-table kernel with the
+Snappy limits, then the encode kernel.  Every kernel writes every byte of
+its outputs (zeros past each row's stream or length), so they are
+allocated with ``torch.empty``.  The decode launches a second kernel that
+rewrites, by start, the rows whose output goes back (only crafted streams
+have them), with an int32 scratch of ``out_capacity`` entries a row, for
+up to ``REWRITE_SCRATCH // out_capacity`` rows at once.  ``LAUNCHES``
+counts the launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -28,9 +29,10 @@ from __future__ import annotations
 import torch
 
 from tpucomp_torch.core.sizing import snappy_max_compressed_chunk_size
-from tpucomp_torch.kernels import _build
+from tpucomp_torch.codecs.snappy import MAX_OFFSET, MIN_MATCH
+from tpucomp_torch.kernels import _build, lz77_cuda
 
-LAUNCHES = {"encode": 0, "decode": 0}
+LAUNCHES = {"table": 0, "encode": 0, "decode": 0}
 # The int32 scratch the decode gives its rewrite by start, in entries: one
 # row's out_capacity for each row rewritten at once (at least one row)
 REWRITE_SCRATCH = 1 << 20
@@ -49,37 +51,50 @@ def _raise_if(err: int, what: str) -> None:
         raise RuntimeError(f"Snappy {what} kernel launch failed with CUDA error {err}")
 
 
-def compress(data: torch.Tensor, lengths: torch.Tensor, nmp: torch.Tensor, dist: torch.Tensor):
+def match_table(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Match-table kernel with the Snappy limits: data uint8[B, C], lengths
+    int32[B] in [0, C] on one CUDA device -> uint16[B, C], equal to
+    ``lz77.match_table(data, lengths, 1, 32768, 4)``."""
+    table = lz77_cuda.launch_match_table(data, lengths, 1, MAX_OFFSET, MIN_MATCH)
+    LAUNCHES["table"] += 1
+    return table
+
+
+def encode(data: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
     """Encode kernel: data uint8[B, C], lengths int32[B] in [0, C] and the
-    candidate tables nmp, dist int32[B, C] that ``lz77.candidate_tables``
-    made for them with the Snappy limits, on one CUDA device -> (comp
-    uint8[B, SNAPPYMAX], comp_sizes int32[B])."""
-    _check(data, lengths, nmp, dist)
+    Snappy match table that ``match_table`` made for them, uint16[B, C], on
+    one CUDA device -> (comp uint8[B, SNAPPYMAX], comp_sizes int32[B])."""
+    _check(data, lengths, table)
     if data.dtype != torch.uint8 or data.dim() != 2:
         raise ValueError("data must be uint8[B, C]")
     b, c = data.shape
     if c > 1 << 24:  # a literal header holds lengths of at most 2**24 bytes
         raise ValueError("the Snappy encode kernel takes chunks of at most 16 MB")
-    for name, t in (("nmp", nmp), ("dist", dist)):
-        if t.dtype != torch.int32 or tuple(t.shape) != (b, c):
-            raise ValueError(f"{name} must be int32[{b}, {c}]")
+    if table.dtype != torch.uint16 or tuple(table.shape) != (b, c):
+        raise ValueError(f"table must be uint16[{b}, {c}]")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths must be int32[{b}]")
-    data, lengths, nmp, dist = (t.contiguous() for t in (data, lengths, nmp, dist))
+    data, lengths, table = (t.contiguous() for t in (data, lengths, table))
     out_row = snappy_max_compressed_chunk_size(c)
-    out = torch.zeros(b, out_row, dtype=torch.uint8, device=data.device)
-    sizes = torch.zeros(b, dtype=torch.int32, device=data.device)
+    out = torch.empty(b, out_row, dtype=torch.uint8, device=data.device)  # the kernel writes every byte
+    sizes = torch.empty(b, dtype=torch.int32, device=data.device)
     if b == 0:
         return out, sizes
     with torch.cuda.device(data.device):
         err = _build.load().tc_snappy_encode(
-            data.data_ptr(), lengths.data_ptr(), nmp.data_ptr(), dist.data_ptr(),
-            out.data_ptr(), sizes.data_ptr(), b, c, out_row,
-            torch.cuda.current_stream(data.device).cuda_stream,
+            data.data_ptr(), lengths.data_ptr(), table.data_ptr(), out.data_ptr(), sizes.data_ptr(),
+            b, c, out_row, torch.cuda.current_stream(data.device).cuda_stream,
         )
     _raise_if(err, "encode")
     LAUNCHES["encode"] += 1
     return out, sizes
+
+
+def compress(data: torch.Tensor, lengths: torch.Tensor):
+    """The match-table kernel, then the encode kernel: data uint8[B, C],
+    lengths int32[B] in [0, C] on one CUDA device -> (comp uint8[B,
+    SNAPPYMAX], comp_sizes int32[B])."""
+    return encode(data, lengths, match_table(data, lengths))
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, out_capacity: int):
