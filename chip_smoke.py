@@ -100,6 +100,24 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def _lz4_table(data, lengths, stride=1):
+    """The match-table kernel with the LZ4 limits, as codecs.lz4.compress
+    launches it."""
+    from tpucomp_torch.codecs import lz77
+    from tpucomp_torch.kernels import lz77_cuda
+
+    return lz77_cuda.match_table(data, lengths, stride, lz77.MAX_OFFSET, lz77.LAST_VALID_MATCH)
+
+
+def _snappy_table(data, lengths):
+    """The match-table kernel with the Snappy limits, as
+    codecs.snappy.compress launches it."""
+    from tpucomp_torch.codecs import snappy as ts
+    from tpucomp_torch.kernels import lz77_cuda
+
+    return lz77_cuda.match_table(data, lengths, 1, ts.MAX_OFFSET, ts.MIN_MATCH)
+
+
 def _equal(name, got, want):
     """Max |got - want| over integer tensors; raises unless it is 0."""
     import torch
@@ -304,10 +322,10 @@ def phase_lz4_matrix(dev):
     for label, arr, lens, stride in encode_cases:
         d, ln = cuda(arr, lens)
         for s in (1, 2, 4):  # the table at every stride, with the LZ4 limits
-            err["table"] = max(err["table"], _equal(f"{label} table stride {s}", kl.match_table(d, ln, s),
+            err["table"] = max(err["table"], _equal(f"{label} table stride {s}", _lz4_table(d, ln, s),
                                                     lz77.match_table(d, ln, s)))
             n += 1
-        comp, sizes = kl.encode(d, ln, kl.match_table(d, ln, stride))
+        comp, sizes = kl.encode(d, ln, _lz4_table(d, ln, stride))
         want = tl._compress_plain(d, ln, stride)
         torch.cuda.synchronize()
         err["encode"] = max(err["encode"], _equal(f"{label} encode rows", comp, want[0]),
@@ -347,11 +365,11 @@ def phase_lz4_matrix(dev):
         comps, szs = cases.garbage_batch(np.random.default_rng(100 + seed), 64, cases.C + 600)
         _lz4_decode_both(err, *cuda(comps, szs), cases.C, f"garbage seed {seed}")
         n += 1
-    _time_worst_row(kl, dev, "LZ4")
+    _time_worst_row(_lz4_table, tl.compress, dev, "LZ4")
     return err, n, len(encode_cases)
 
 
-def _time_worst_row(kern, dev, label):
+def _time_worst_row(table, compress, dev, label):
     """CUDA-event times of the table kernel and of a whole compress on the
     rows that stress the table most: 1 MB of all-distinct 4-byte windows
     (every position a key of its own: the longest search a hash chain
@@ -368,8 +386,8 @@ def _time_worst_row(kern, dev, label):
                       ("zeros", np.zeros(c, np.uint8))):
         d = torch.from_numpy(row[None, :].copy()).to(dev)
         ln = torch.full((1,), c, dtype=torch.int32, device=dev)
-        tt = wall(kern.match_table, d, ln, iters=ITERS, warmup=WARMUP)
-        tc = wall(kern.compress, d, ln, iters=ITERS, warmup=WARMUP)
+        tt = wall(table, d, ln, iters=ITERS, warmup=WARMUP)
+        tc = wall(compress, d, ln, iters=ITERS, warmup=WARMUP)
         print(f"  {label} 1 MB row of {name}: table kernel {tt.median_ms:.3f} ms (min {tt.min_ms:.3f}, "
               f"max {tt.max_ms:.3f}), whole compress {tc.median_ms:.3f} ms (min {tc.min_ms:.3f}, "
               f"max {tc.max_ms:.3f})", flush=True)
@@ -437,12 +455,12 @@ def phase_lz4_times(corpora):
         # the plain table, and the torch pre-pass the CUDA path no longer runs, timed once each
         (want_tbl, t["plain_table"]) = _timed_once(lz77.match_table, data, lengths, nbytes=nbytes)
         _, t["old_prepass"] = _timed_once(lz77.candidate_tables, data, lengths, nbytes=nbytes)
-        tbl = kl.match_table(data, lengths)
+        tbl = _lz4_table(data, lengths)
         err["table"] = max(err["table"], _equal(f"LZ4 {name} table", tbl, want_tbl))
         del want_tbl
         comp, sizes = kl.encode(data, lengths, tbl)
         (pc, ps), t["plain_encode"] = _timed_once(plain_encode, data, lengths, nbytes=nbytes)
-        t["kernel_table"] = wall(kl.match_table, data, lengths, iters=ITERS, warmup=WARMUP, bytes_processed=nbytes)
+        t["kernel_table"] = wall(_lz4_table, data, lengths, iters=ITERS, warmup=WARMUP, bytes_processed=nbytes)
         t["kernel_encode"] = wall(kl.encode, data, lengths, tbl, iters=ITERS, warmup=WARMUP,
                                   bytes_processed=nbytes)
         t["kernel_decode"] = wall(kl.decompress, comp, sizes, C, iters=ITERS, warmup=WARMUP,
@@ -536,7 +554,7 @@ def phase_snappy_matrix(dev):
     table_cases = cases.table_rows(np.random.default_rng(22))
     for label, arr, lens in encode_cases + table_cases:
         d, ln = cuda(arr, lens)
-        tbl = ks.match_table(d, ln)
+        tbl = _snappy_table(d, ln)
         err["table"] = max(err["table"], _equal(f"Snappy {label} table", tbl,
                                                 lz77.match_table(d, ln, 1, ts.MAX_OFFSET, ts.MIN_MATCH)))
         comp, sizes = ks.encode(d, ln, tbl)
@@ -595,7 +613,7 @@ def phase_snappy_matrix(dev):
         comps, szs = cases.garbage_batch(np.random.default_rng(100 + seed), 64, cases.C + 600)
         _snappy_decode_both(err, *cuda(comps, szs), cases.C, f"garbage seed {seed}")
         n += 1
-    _time_worst_row(ks, dev, "Snappy")
+    _time_worst_row(_snappy_table, ts.compress, dev, "Snappy")
     return err, n, len(encode_cases) + len(table_cases)
 
 
@@ -647,12 +665,12 @@ def phase_snappy_times(corpora):
         (want_tbl, t["plain_table"]) = _timed_once(lz77.match_table, data, lengths, 1, ts.MAX_OFFSET, ts.MIN_MATCH,
                                                    nbytes=nbytes)
         _, t["old_prepass"] = _timed_once(_snappy_tables, data, lengths, nbytes=nbytes)
-        tbl = ks.match_table(data, lengths)
+        tbl = _snappy_table(data, lengths)
         err["table"] = max(err["table"], _equal(f"Snappy {name} table", tbl, want_tbl))
         del want_tbl
         comp, sizes = ks.encode(data, lengths, tbl)
         (pc, ps), t["plain_encode"] = _timed_once(plain_encode, data, lengths, nbytes=nbytes)
-        t["kernel_table"] = wall(ks.match_table, data, lengths, iters=ITERS, warmup=WARMUP, bytes_processed=nbytes)
+        t["kernel_table"] = wall(_snappy_table, data, lengths, iters=ITERS, warmup=WARMUP, bytes_processed=nbytes)
         t["kernel_encode"] = wall(ks.encode, data, lengths, tbl, iters=ITERS, warmup=WARMUP,
                                   bytes_processed=nbytes)
         t["kernel_decode"] = wall(ks.decompress, comp, sizes, C, iters=ITERS, warmup=WARMUP,
@@ -715,8 +733,8 @@ def phase_scaling(corpora):
     lengths = torch.full((B,), C, dtype=torch.int32, device=data.device)
     sms = torch.cuda.get_device_properties(data.device).multi_processor_count
     result = {}
-    for codec, kern in (("lz4", kl), ("snappy", ks)):
-        tbl = kern.match_table(data, lengths)
+    for codec, kern, table in (("lz4", kl, _lz4_table), ("snappy", ks, _snappy_table)):
+        tbl = table(data, lengths)
         comp, sizes = kern.encode(data, lengths, tbl)
         elements, sequences = _walk_steps(codec, comp, sizes)
         for k, unit, steps in (("encode", "sequence", sequences),
@@ -778,11 +796,12 @@ def _peak_compress(compress, data, lengths):
     return peak / 1e6
 
 
-def phase_hlif(corpora, counters):
+def phase_hlif(corpora, counters, paths):
     """The 256 MB mixed corpus as one buffer through each manager at its
     default chunk size: create_manager on the artifact, exact round trip,
-    the codec's kernels launched; host-clock compress and decompress
-    times, and the assembly and slicing alone (CUDA events)."""
+    the codec's kernels launched (the counters of ``paths[codec]``) and no
+    other; host-clock compress and decompress times, and the assembly and
+    slicing alone (CUDA events)."""
     import torch
 
     import tpucomp_torch
@@ -814,9 +833,9 @@ def phase_hlif(corpora, counters):
             raise AssertionError(f"HLIF {name}: create_manager gave {type(mgr2).__name__}")
         if not torch.equal(out, data) or bool(statuses.any()):
             raise AssertionError(f"HLIF {name}: 256 MB round trip is not exact")
-        launched = dict(counters[name])
-        if not (launched["encode"] and launched["decode"]) or any(
-                any(c.values()) for k, c in counters.items() if k != name):
+        launched = {k: n for c in paths[name] for k, n in counters[c].items()}
+        if not all(launched.values()) or any(
+                any(c.values()) for k, c in counters.items() if k not in paths[name]):
             raise AssertionError(f"HLIF {name}: launches {counters}")
         # the assembly and the slicing alone, at the manager's shapes
         cs = mgr.uncomp_chunk_size
@@ -873,10 +892,10 @@ def phase_profile(corpora):
         with record_function("decode"):
             kc.decompress(comp, sizes, o, C)
 
-    def lz_step(kern):
+    def lz_step(kern, table):
         def step():
             with record_function("table"):
-                tbl = kern.match_table(data, lengths)
+                tbl = table(data, lengths)
             with record_function("encode"):
                 comp, sizes = kern.encode(data, lengths, tbl)
             with record_function("decode"):
@@ -896,7 +915,8 @@ def phase_profile(corpora):
             walls.append((time.perf_counter() - t0) * 1e3)
         return sorted(walls)[1]
 
-    for path, step in (("cascaded", cascaded_step), ("lz4", lz_step(kl)), ("snappy", lz_step(ks))):
+    for path, step in (("cascaded", cascaded_step), ("lz4", lz_step(kl, _lz4_table)),
+                       ("snappy", lz_step(ks, _snappy_table))):
         wall_ms = step_wall_ms(step)  # host clock, without the profiler
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step()
@@ -939,9 +959,12 @@ def main() -> int:
     from tpucomp_torch.kernels import _build
     from tpucomp_torch.kernels import cascaded_cuda as kc
     from tpucomp_torch.kernels import lz4_cuda as kl
+    from tpucomp_torch.kernels import lz77_cuda as kt
     from tpucomp_torch.kernels import snappy_cuda as ks
 
-    counters = {"cascaded": kc.LAUNCHES, "lz4": kl.LAUNCHES, "snappy": ks.LAUNCHES}
+    # each wrapper module's launch counts, and the modules each main path launches
+    counters = {"cascaded": kc.LAUNCHES, "lz4": kl.LAUNCHES, "snappy": ks.LAUNCHES, "table": kt.LAUNCHES}
+    paths = {"cascaded": ("cascaded",), "lz4": ("lz4", "table"), "snappy": ("snappy", "table")}
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -982,16 +1005,20 @@ def main() -> int:
             for k in counts:
                 counts[k] = 0
 
+    def launched(codec):
+        """The launch counts of ``codec``'s kernels (LZ: match table,
+        encode, decode)."""
+        return {k: n for c in paths[codec] for k, n in counters[c].items()}
+
     def only_launched(codec):
         """True when the last main path launched every kernel of ``codec``
-        (LZ: match table, encode, decode) once per corpus or more, and no
-        other codec's kernel."""
-        return all(n >= len(corpora) for n in counters[codec].values()) and not any(
-            any(c.values()) for name, c in counters.items() if name != codec)
+        once per corpus or more, and no other kernel."""
+        return all(n >= len(corpora) for n in launched(codec).values()) and not any(
+            any(c.values()) for name, c in counters.items() if name not in paths[codec])
 
     reset_counts()
     phase_main_path(dev, corpora)
-    launches = {"cascaded": dict(kc.LAUNCHES)}
+    launches = {"cascaded": launched("cascaded")}
     if not only_launched("cascaded"):
         raise AssertionError(f"the Cascaded main path launched {counters}")
 
@@ -1005,7 +1032,7 @@ def main() -> int:
 
     reset_counts()
     phase_lz4_main_path(corpora)
-    launches["lz4"] = dict(kl.LAUNCHES)
+    launches["lz4"] = launched("lz4")
     if not only_launched("lz4"):
         raise AssertionError(f"the LZ4 main path did not launch the LZ4 kernels alone: {counters}")
 
@@ -1020,13 +1047,13 @@ def main() -> int:
 
     reset_counts()
     phase_snappy_main_path(corpora)
-    launches["snappy"] = dict(ks.LAUNCHES)
+    launches["snappy"] = launched("snappy")
     if not only_launched("snappy"):
         raise AssertionError(f"the Snappy main path did not launch the Snappy kernels alone: {counters}")
     print(f"  launches on the main paths: {json.dumps(launches)}", flush=True)
 
     snappy_times, snappy_main_err = phase_snappy_times(corpora)
-    hlif = phase_hlif(corpora, counters)
+    hlif = phase_hlif(corpora, counters, paths)
     scaling = phase_scaling(corpora)
 
     kernels = []

@@ -57,7 +57,7 @@ def build(src: str, out_dir: str):
     subprocess.run(["g++", "-std=c++17", "-O2", "-fPIC", "-shared", "-I", os.path.join(HERE, "include"),
                     "-I", src, "-include", "emu.h", "-o", lib, *cpp, os.path.join(HERE, "emu.cpp")], check=True)
     lib = ctypes.CDLL(lib)
-    lib.tc_lz_match_table_ctas.argtypes = [LL]
+    lib.tc_lz_match_table_grid.argtypes = [LL, LL, ctypes.POINTER(LL)]
     lib.tc_lz_match_table.argtypes = [P, P, P, P, LL, LL, I, I, I, I, P]
     lib.tc_lz4_encode.argtypes = [P, P, P, P, P, LL, LL, LL, P]
     lib.tc_snappy_encode.argtypes = [P, P, P, P, P, LL, LL, LL, P]
@@ -70,9 +70,10 @@ def table(lib, data, lengths, stride, max_offset, end_margin):
     out = torch.full((b, c), 0xABCD, dtype=torch.int32).to(torch.uint16)  # entries the kernel must all write
     if b == 0 or c == 0:
         return out
-    grid = min(lib.tc_lz_match_table_ctas(c), b * -(-c // (1 << 16)))
-    elems = min(c, 1 << 17)
-    scratch = torch.full((grid * 2 * elems,), 0x5A5A, dtype=torch.int16 if elems <= 65536 else torch.int32)
+    scratch_bytes = LL(0)
+    grid = lib.tc_lz_match_table_grid(b, c, ctypes.byref(scratch_bytes))
+    assert grid > 0
+    scratch = torch.full((scratch_bytes.value,), 0x5A, dtype=torch.uint8)
     err = lib.tc_lz_match_table(data.data_ptr(), lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, c,
                                 stride, max_offset, end_margin, grid, None)
     assert err == 0

@@ -30,15 +30,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 from bench import load_corpus, runheavy_corpus  # noqa: E402
 from tpucomp_torch.codecs import lz4 as tl  # noqa: E402
+from tpucomp_torch.codecs import lz77  # noqa: E402
 from tpucomp_torch.codecs import snappy as ts  # noqa: E402
 from tpucomp_torch.core.sizing import lz4_max_compressed_chunk_size, snappy_max_compressed_chunk_size  # noqa: E402
-from tpucomp_torch.kernels import lz4_cuda as kl  # noqa: E402
-from tpucomp_torch.kernels import snappy_cuda as ks  # noqa: E402
+from tpucomp_torch.kernels import lz77_cuda  # noqa: E402
 
 B, C = 4096, 65536
 P, LL = ctypes.c_void_p, ctypes.c_longlong
-CODECS = {"lz4": (kl, tl, lz4_max_compressed_chunk_size(C), "tc_lz4_encode"),
-          "snappy": (ks, ts, snappy_max_compressed_chunk_size(C), "tc_snappy_encode")}
+CODECS = {"lz4": ((lz77.MAX_OFFSET, lz77.LAST_VALID_MATCH), tl, lz4_max_compressed_chunk_size(C), "tc_lz4_encode"),
+          "snappy": ((ts.MAX_OFFSET, ts.MIN_MATCH), ts, snappy_max_compressed_chunk_size(C), "tc_snappy_encode")}
 
 
 def build(name, src, tmp):
@@ -64,8 +64,8 @@ def main():
         stream = torch.cuda.current_stream().cuda_stream
         for corpus, gen in (("mixed", load_corpus), ("runheavy", runheavy_corpus)):
             data = torch.from_numpy(np.frombuffer(gen(B * C), np.uint8).reshape(B, C).copy()).cuda()
-            for codec, (kern, plain, row, fn) in CODECS.items():
-                table = kern.match_table(data, lengths)
+            for codec, (limits, plain, row, fn) in CODECS.items():
+                table = lz77_cuda.match_table(data, lengths, 1, *limits)
                 outs = {n: (torch.empty(B, row, dtype=torch.uint8, device="cuda"),
                             torch.empty(B, dtype=torch.int32, device="cuda")) for n in libs}
                 runs = {}

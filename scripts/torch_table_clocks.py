@@ -105,15 +105,16 @@ def main():
         if r.returncode:
             sys.exit(r.stderr[-3000:])
         L = ctypes.CDLL(lib)
-        L.tc_lz_match_table_ctas.argtypes = [LL]
+        L.tc_lz_match_table_grid.argtypes = [LL, LL, ctypes.POINTER(LL)]
         L.tc_lz_match_table.argtypes = [P, P, P, P, LL, LL, I, I, I, I, P]
         L.tc_table_clocks.argtypes = [P, I]
         lengths = torch.full((B,), C, dtype=torch.int32, device="cuda")
         out = torch.empty(B, C, dtype=torch.uint16, device="cuda")
         for corpus, gen in (("mixed", load_corpus), ("runheavy", runheavy_corpus)):
             data = torch.from_numpy(np.frombuffer(gen(B * C), np.uint8).reshape(B, C).copy()).cuda()
-            grid = min(L.tc_lz_match_table_ctas(C), B)
-            scratch = torch.empty(grid * 2 * C, dtype=torch.int16, device="cuda")
+            scratch_bytes = LL(0)
+            grid = L.tc_lz_match_table_grid(B, C, ctypes.byref(scratch_bytes))
+            scratch = torch.empty(scratch_bytes.value, dtype=torch.uint8, device="cuda")
             L.tc_table_clocks(None, 1)
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()

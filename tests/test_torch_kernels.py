@@ -125,8 +125,20 @@ def test_build_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert _build.library_path() != first
     assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
     assert sorted(p.name for p in _build._sources()) == ["a.cu"]
-    assert {"tc_cascaded_encode", "tc_cascaded_decode", "tc_lz_match_table", "tc_lz_match_table_ctas",
+    assert {"tc_cascaded_encode", "tc_cascaded_decode", "tc_lz_match_table", "tc_lz_match_table_grid",
             "tc_lz4_encode", "tc_lz4_decode", "tc_snappy_encode", "tc_snappy_decode"} == set(_build.SIGNATURES)
+
+
+def test_build_signatures_name_the_sources_entry_points():
+    """Every C entry point the loader binds is defined in the sources, with
+    as many parameters as its argtypes, and the sources define no other."""
+    import re
+
+    defined = {}
+    for src in _build._sources():
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            defined[name] = len([p for p in params.split(",") if p.strip()])
+    assert defined == {name: len(args) for name, args in _build.SIGNATURES.items()}
 
 
 def test_build_compiles_each_source_then_links_one_library(monkeypatch, tmp_path):

@@ -19,6 +19,7 @@ from tpucomp_torch.codecs import lz77
 from tpucomp_torch.core.options import LZ4Opts
 from tpucomp_torch.core.types import DataType
 from tpucomp_torch.kernels import lz4_cuda as kl
+from tpucomp_torch.kernels import lz77_cuda
 
 import torch_lz4_cases as cases
 
@@ -57,11 +58,16 @@ def _decode_both(comp, sizes, cap):
     return got
 
 
+def _table(d, n, stride):
+    return lz77_cuda.match_table(d, n, stride, lz77.MAX_OFFSET, lz77.LAST_VALID_MATCH)
+
+
 def _compress_both(d, n, stride):
-    """The table kernel held to ``lz77.match_table``, then ``compress``
-    (both kernels) held to the plain encoder."""
-    assert torch.equal(kl.match_table(d, n, stride), lz77.match_table(d, n, stride))
-    comp, sizes = kl.compress(d, n, stride)
+    """The table kernel held to ``lz77.match_table``, then the encode kernel
+    on that table held to the plain encoder."""
+    table = _table(d, n, stride)
+    assert torch.equal(table, lz77.match_table(d, n, stride))
+    comp, sizes = kl.encode(d, n, table)
     _equal((comp, sizes), tl._compress_plain(d, n, stride))
     return comp, sizes
 
@@ -174,22 +180,41 @@ def test_lz4_cuda_compress_finds_its_own_candidates(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_lz4_launch_counters_move(cuda):
-    before = dict(kl.LAUNCHES)
+    before, table_before = dict(kl.LAUNCHES), lz77_cuda.LAUNCHES["table"]
     data = (torch.arange(4 * 8192, device=cuda) % 251).to(torch.uint8).view(4, 8192)
     lengths = torch.full((4,), 8192, dtype=torch.int32, device=cuda)
     comp, sizes = tl.compress(data, lengths, LZ4Opts(data_type=DataType.UINT))
     out, nbytes, status = tl.decompress(comp, sizes, out_capacity=8192)
-    assert kl.LAUNCHES == {k: before[k] + 1 for k in ("table", "encode", "decode")}
+    assert kl.LAUNCHES == {k: before[k] + 1 for k in ("encode", "decode")}
+    assert lz77_cuda.LAUNCHES["table"] == table_before + 1
     assert torch.equal(out, data) and not status.any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(0, 64), (2, 0), (0, 0)])
+def test_lz_table_counts_only_launches(cuda, shape):
+    """The table wrapper counts a launch only where it launches its kernel:
+    an empty batch or an empty row launches none.  An empty batch
+    compresses with no launch at all."""
+    table_before = lz77_cuda.LAUNCHES["table"]
+    data = torch.zeros(shape, dtype=torch.uint8, device=cuda)
+    lengths = torch.zeros(shape[0], dtype=torch.int32, device=cuda)
+    table = _table(data, lengths, 1)
+    assert table.shape == shape and lz77_cuda.LAUNCHES["table"] == table_before
+    if shape[0] == 0 and shape[1] > 0:
+        before = dict(kl.LAUNCHES)
+        comp, sizes = tl.compress(data, lengths)
+        assert lz77_cuda.LAUNCHES["table"] == table_before and kl.LAUNCHES == before
+        _equal((comp, sizes), tl._compress_plain(data, lengths))
+
+
 def test_cpu_tensors_never_touch_the_lz4_kernels():
-    before = dict(kl.LAUNCHES)
+    before, table_before = dict(kl.LAUNCHES), lz77_cuda.LAUNCHES["table"]
     arr, lens = cases.batch([np.arange(3000, dtype=np.uint8) % 13, b"abc" * 100], 4096)
     comp, sizes = tl.compress(torch.from_numpy(arr), torch.from_numpy(lens))
     out, nbytes, status = tl.decompress(comp, sizes, out_capacity=4096)
     assert not status.any() and torch.equal(nbytes, torch.from_numpy(lens))
-    assert kl.LAUNCHES == before
+    assert kl.LAUNCHES == before and lz77_cuda.LAUNCHES["table"] == table_before
 
 
 def test_lz4_wrappers_refuse_what_the_kernels_do_not_take():
@@ -200,9 +225,7 @@ def test_lz4_wrappers_refuse_what_the_kernels_do_not_take():
     lengths = torch.full((2,), 64, dtype=torch.int32)
     table = torch.zeros(2, 64, dtype=torch.uint16)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kl.compress(data, lengths)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kl.match_table(data, lengths, 2)
+        _table(data, lengths, 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kl.encode(data, lengths, table)
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -16,6 +16,7 @@ import torch
 from oracles.snappy_oracle import snappy_compress_oracle
 from tpucomp_torch.codecs import lz77
 from tpucomp_torch.codecs import snappy as ts
+from tpucomp_torch.kernels import lz77_cuda
 from tpucomp_torch.kernels import snappy_cuda as ks
 
 import torch_snappy_cases as cases
@@ -48,11 +49,17 @@ def _encode_case(name):
     return dict((k, (a, n)) for k, a, n in cases.kernel_sizes(rng))[name]
 
 
+def _table(d, n):
+    return lz77_cuda.match_table(d, n, 1, ts.MAX_OFFSET, ts.MIN_MATCH)
+
+
 def _compress_both(d, n):
     """The table kernel held to ``lz77.match_table`` with the Snappy
-    limits, then ``compress`` (both kernels) held to the plain encoder."""
-    assert torch.equal(ks.match_table(d, n), lz77.match_table(d, n, 1, ts.MAX_OFFSET, ts.MIN_MATCH))
-    comp, sizes = ks.compress(d, n)
+    limits, then the encode kernel on that table held to the plain
+    encoder."""
+    table = _table(d, n)
+    assert torch.equal(table, lz77.match_table(d, n, 1, ts.MAX_OFFSET, ts.MIN_MATCH))
+    comp, sizes = ks.encode(d, n, table)
     _equal((comp, sizes), ts._compress_plain(d, n))
     return comp, sizes
 
@@ -187,22 +194,23 @@ def test_snappy_cuda_compress_finds_its_own_candidates(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_snappy_launch_counters_move(cuda):
-    before = dict(ks.LAUNCHES)
+    before, table_before = dict(ks.LAUNCHES), lz77_cuda.LAUNCHES["table"]
     data = (torch.arange(4 * 8192, device=cuda) % 251).to(torch.uint8).view(4, 8192)
     lengths = torch.full((4,), 8192, dtype=torch.int32, device=cuda)
     comp, sizes = ts.compress(data, lengths)
     out, nbytes, status = ts.decompress(comp, sizes, out_capacity=8192)
-    assert ks.LAUNCHES == {k: before[k] + 1 for k in ("table", "encode", "decode")}
+    assert ks.LAUNCHES == {k: before[k] + 1 for k in ("encode", "decode")}
+    assert lz77_cuda.LAUNCHES["table"] == table_before + 1
     assert torch.equal(out, data) and not status.any()
 
 
 def test_cpu_tensors_never_touch_the_snappy_kernels():
-    before = dict(ks.LAUNCHES)
+    before, table_before = dict(ks.LAUNCHES), lz77_cuda.LAUNCHES["table"]
     arr, lens = cases.batch([np.arange(3000, dtype=np.uint8) % 13, b"abc" * 100, b""], 4096)
     comp, sizes = ts.compress(torch.from_numpy(arr), torch.from_numpy(lens))
     out, nbytes, status = ts.decompress(comp, sizes, out_capacity=4096)
     assert not status.any() and torch.equal(nbytes, torch.from_numpy(lens))
-    assert ks.LAUNCHES == before
+    assert ks.LAUNCHES == before and lz77_cuda.LAUNCHES["table"] == table_before
 
 
 def test_snappy_wrappers_refuse_what_the_kernels_do_not_take():
@@ -213,9 +221,7 @@ def test_snappy_wrappers_refuse_what_the_kernels_do_not_take():
     lengths = torch.full((2,), 64, dtype=torch.int32)
     table = torch.zeros(2, 64, dtype=torch.uint16)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        ks.compress(data, lengths)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ks.match_table(data, lengths)
+        _table(data, lengths)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ks.encode(data, lengths, table)
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -230,9 +230,11 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: LZ4Opts | None = N
     lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
     if data.device.type == "cpu":
         return _compress_plain(data, lengths, stride)
-    from tpucomp_torch.kernels import lz4_cuda
+    from tpucomp_torch.kernels import lz4_cuda, lz77_cuda
 
-    return lz4_cuda.compress(data, lengths, stride)
+    data = data.contiguous()
+    table = lz77_cuda.match_table(data, lengths, stride, lz77.MAX_OFFSET, lz77.LAST_VALID_MATCH)
+    return lz4_cuda.encode(data, lengths, table)
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: LZ4Opts | None = None,

@@ -275,9 +275,11 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: SnappyOpts | None 
     lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
     if data.device.type == "cpu":
         return _compress_plain(data, lengths)
-    from tpucomp_torch.kernels import snappy_cuda
+    from tpucomp_torch.kernels import lz77_cuda, snappy_cuda
 
-    return snappy_cuda.compress(data, lengths)
+    data = data.contiguous()
+    table = lz77_cuda.match_table(data, lengths, 1, MAX_OFFSET, MIN_MATCH)
+    return snappy_cuda.encode(data, lengths, table)
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: SnappyOpts | None = None,

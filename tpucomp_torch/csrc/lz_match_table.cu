@@ -49,10 +49,12 @@
 // bucket to overflow); the digits only move which shared-memory banks and
 // counters are hit, and how many distinct digits a warp's
 // __match_any_sync sees: mixed data (many) costs more than runs (few).
-// A 1 MB row of all-distinct windows, the input that would walk a hash
-// chain longest, takes 1.2 ms alone (PERF.md).  Rows past 64 KB sort the
-// 64K positions before each segment again, so they cost up to 2x a 64 KB
-// row per byte.
+// A 1 MB row of all-distinct windows takes 1.2 ms alone.  A hash-chain
+// table (scripts/table_variants/hash_chain) took 66.9 ms for 256 MB of
+// mixed data, and 2.7 s for a 1 MB row of distinct words all in one
+// bucket of its hash, which this kernel does in 0.34 ms (PERF.md).
+// Rows past 64 KB sort the 64K positions before each segment again, so
+// they cost up to 2x a 64 KB row per byte.
 //
 // Covers rows up to 16 MB (positions fit int32), strides 1, 2 and 4,
 // max_offset <= 65535.
@@ -279,10 +281,11 @@ cudaError_t prepare(int smem) {
 
 }  // namespace
 
-// The CTAs of the table kernel that the current device holds at once for
-// rows of `row_bytes` (the wrapper's grid and scratch follow from it), or
-// minus a CUDA error.
-extern "C" int tc_lz_match_table_ctas(long long row_bytes) {
+// The grid of the table kernel for `batch` rows of `row_bytes` on the
+// current device: the CTAs it holds at once, at most one a job; or minus
+// a CUDA error.  Sets *scratch_bytes to the global scratch that grid
+// needs (two index arrays a CTA), for the caller to allocate.
+extern "C" int tc_lz_match_table_grid(long long batch, long long row_bytes, long long* scratch_bytes) {
   using namespace tpucomp_lzt;
   int max_elems, dev, sms, per_sm;
   const int smem = table_smem(row_bytes, max_elems);
@@ -294,13 +297,16 @@ extern "C" int tc_lz_match_table_ctas(long long row_bytes) {
               ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lz_match_table_kernel<uint16_t>, kThreads, smem)
               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lz_match_table_kernel<uint32_t>, kThreads, smem);
   if (err != cudaSuccess) return -(int)err;
-  return sms * max(per_sm, 1);
+  const long long jobs = batch * ((row_bytes + kSeg - 1) / kSeg);
+  const int grid = (int)min((long long)sms * max(per_sm, 1), jobs);
+  *scratch_bytes = (long long)grid * 2 * max_elems * (max_elems <= 65536 ? 2 : 4);
+  return grid;
 }
 
 // Launches the table kernel on `stream` with `grid` CTAs, each taking
-// jobs (row segments) in turn; `scratch` holds 2 * min(row_bytes, 131072)
-// indices for each CTA, uint16 up to 65536 of them, else uint32.  Returns
-// the launch's CUDA error (0 on success).
+// jobs (row segments) in turn, with the grid and the scratch of the bytes
+// that tc_lz_match_table_grid gave for these rows.  Returns the launch's
+// CUDA error (0 on success).
 extern "C" int tc_lz_match_table(const void* data, const void* lengths, void* out, void* scratch,
                                  long long batch, long long row_bytes, int stride, int max_offset,
                                  int end_margin, int grid, void* stream) {

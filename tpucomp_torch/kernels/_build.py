@@ -40,8 +40,8 @@ SIGNATURES = {
     # comp, comp_sizes, out, out_bytes, status, batch, row_bytes,
     # out_capacity, width, dtype, elems, k, nr, nd, bp, stream
     "tc_cascaded_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P],
-    # row_bytes -> CTAs of the table kernel the device holds at once
-    "tc_lz_match_table_ctas": [_L],
+    # batch, row_bytes, scratch_bytes (out) -> the table kernel's grid
+    "tc_lz_match_table_grid": [_L, _L, ctypes.POINTER(_L)],
     # data, lengths, out, scratch, batch, row_bytes, stride, max_offset, end_margin, grid, stream
     "tc_lz_match_table": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     # data, lengths, table, out, sizes, batch, row_bytes, out_row, stream

@@ -3,8 +3,6 @@
 =================  ============================  ======================================================
 kernel             source                        replaces (TPU kernel) / plain PyTorch version
 =================  ============================  ======================================================
-match table        ``csrc/lz_match_table.cu``    the XLA pre-pass ``tpucomp/codecs/lz77.py::nearest_prev_occurrence``
-                                                 / ``codecs/lz77.py::match_table`` (``kernels/lz77_cuda.py``)
 encode             ``csrc/lz4_encode.cu``        ``tpucomp/kernels/lz_pallas.py::_lz4_encode_kernel``
                                                  / ``codecs/lz4.py::_compress_plain``
 decode             ``csrc/lz4_decode.cu``        ``tpucomp/kernels/lz_pallas.py::_lz4_decode_kernel``
@@ -14,10 +12,11 @@ decode             ``csrc/lz4_decode.cu``        ``tpucomp/kernels/lz_pallas.py:
 The wrappers take CUDA tensors only and launch on PyTorch's current
 stream; they raise on anything the kernels do not take (a CPU tensor goes
 to the plain version through ``codecs.lz4.compress`` / ``decompress``,
-never through here).  ``compress`` is the match-table kernel with the LZ4
-limits, then the encode kernel.  Every kernel writes every byte of its
-outputs (zeros past each row's stream or length), so they are allocated
-with ``torch.empty``.  ``LAUNCHES`` counts the launches of each kernel.
+never through here).  The encode kernel reads the match table that
+``kernels/lz77_cuda.py`` makes with the LZ4 limits; ``codecs.lz4.compress``
+launches the two in turn.  Both kernels write every byte of their outputs
+(zeros past each row's stream or length), so they are allocated with
+``torch.empty``.  ``LAUNCHES`` counts the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -25,10 +24,9 @@ from __future__ import annotations
 import torch
 
 from tpucomp_torch.core.sizing import lz4_max_compressed_chunk_size
-from tpucomp_torch.codecs import lz77
-from tpucomp_torch.kernels import _build, lz77_cuda
+from tpucomp_torch.kernels import _build
 
-LAUNCHES = {"table": 0, "encode": 0, "decode": 0}
+LAUNCHES = {"encode": 0, "decode": 0}
 
 
 def _check(*tensors: torch.Tensor) -> None:
@@ -48,19 +46,11 @@ def _raise_if(err: int, what: str) -> None:
         raise RuntimeError(f"LZ4 {what} kernel launch failed with CUDA error {err}")
 
 
-def match_table(data: torch.Tensor, lengths: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Match-table kernel with the LZ4 limits: data uint8[B, C], lengths
-    int32[B] in [0, C] on one CUDA device -> uint16[B, C], equal to
-    ``lz77.match_table(data, lengths, stride)``."""
-    table = lz77_cuda.launch_match_table(data, lengths, stride, lz77.MAX_OFFSET, lz77.LAST_VALID_MATCH)
-    LAUNCHES["table"] += 1
-    return table
-
-
 def encode(data: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
-    """Encode kernel: data uint8[B, C], lengths int32[B] in [0, C] and the
-    LZ4 match table that ``match_table`` made for them, uint16[B, C], on one
-    CUDA device -> (comp uint8[B, LZ4MAX], comp_sizes int32[B])."""
+    """Encode kernel: data uint8[B, C], lengths int32[B] in [0, C] and their
+    match table with the LZ4 limits and the stride of the matches
+    (``lz77_cuda.match_table``), uint16[B, C], on one CUDA device -> (comp
+    uint8[B, LZ4MAX], comp_sizes int32[B])."""
     _check(data, lengths, table)
     if data.dtype != torch.uint8 or data.dim() != 2:
         raise ValueError("data must be uint8[B, C]")
@@ -85,13 +75,6 @@ def encode(data: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
     _raise_if(err, "encode")
     LAUNCHES["encode"] += 1
     return out, sizes
-
-
-def compress(data: torch.Tensor, lengths: torch.Tensor, stride: int = 1):
-    """The match-table kernel, then the encode kernel: data uint8[B, C],
-    lengths int32[B] in [0, C] on one CUDA device, matches at ``stride``
-    (1, 2 or 4) -> (comp uint8[B, LZ4MAX], comp_sizes int32[B])."""
-    return encode(data, lengths, match_table(data, lengths, stride))
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, out_capacity: int):

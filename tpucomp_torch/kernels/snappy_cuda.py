@@ -3,8 +3,6 @@
 =================  ============================  ==========================================================
 kernel             source                        replaces (TPU kernel) / plain PyTorch version
 =================  ============================  ==========================================================
-match table        ``csrc/lz_match_table.cu``    the XLA pre-pass ``tpucomp/codecs/lz77.py::nearest_prev_occurrence``
-                                                 / ``codecs/lz77.py::match_table`` (``kernels/lz77_cuda.py``)
 encode             ``csrc/snappy_encode.cu``     ``tpucomp/kernels/snappy_pallas.py::_snappy_encode_kernel``
                                                  / ``codecs/snappy.py::_compress_plain``
 decode             ``csrc/snappy_decode.cu``     ``tpucomp/kernels/snappy_pallas.py::_snappy_decode_kernel``
@@ -14,14 +12,15 @@ decode             ``csrc/snappy_decode.cu``     ``tpucomp/kernels/snappy_pallas
 The wrappers take CUDA tensors only and launch on PyTorch's current
 stream; they raise on anything the kernels do not take (a CPU tensor goes
 to the plain version through ``codecs.snappy.compress`` / ``decompress``,
-never through here).  ``compress`` is the match-table kernel with the
-Snappy limits, then the encode kernel.  Every kernel writes every byte of
-its outputs (zeros past each row's stream or length), so they are
-allocated with ``torch.empty``.  The decode launches a second kernel that
-rewrites, by start, the rows whose output goes back (only crafted streams
-have them), with an int32 scratch of ``out_capacity`` entries a row, for
-up to ``REWRITE_SCRATCH // out_capacity`` rows at once.  ``LAUNCHES``
-counts the launches of each wrapper.
+never through here).  The encode kernel reads the match table that
+``kernels/lz77_cuda.py`` makes with the Snappy limits;
+``codecs.snappy.compress`` launches the two in turn.  Both kernels write
+every byte of their outputs (zeros past each row's stream or length), so
+they are allocated with ``torch.empty``.  The decode launches a second
+kernel that rewrites, by start, the rows whose output goes back (only
+crafted streams have them), with an int32 scratch of ``out_capacity``
+entries a row, for up to ``REWRITE_SCRATCH // out_capacity`` rows at
+once.  ``LAUNCHES`` counts the launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -29,10 +28,9 @@ from __future__ import annotations
 import torch
 
 from tpucomp_torch.core.sizing import snappy_max_compressed_chunk_size
-from tpucomp_torch.codecs.snappy import MAX_OFFSET, MIN_MATCH
-from tpucomp_torch.kernels import _build, lz77_cuda
+from tpucomp_torch.kernels import _build
 
-LAUNCHES = {"table": 0, "encode": 0, "decode": 0}
+LAUNCHES = {"encode": 0, "decode": 0}
 # The int32 scratch the decode gives its rewrite by start, in entries: one
 # row's out_capacity for each row rewritten at once (at least one row)
 REWRITE_SCRATCH = 1 << 20
@@ -51,19 +49,11 @@ def _raise_if(err: int, what: str) -> None:
         raise RuntimeError(f"Snappy {what} kernel launch failed with CUDA error {err}")
 
 
-def match_table(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Match-table kernel with the Snappy limits: data uint8[B, C], lengths
-    int32[B] in [0, C] on one CUDA device -> uint16[B, C], equal to
-    ``lz77.match_table(data, lengths, 1, 32768, 4)``."""
-    table = lz77_cuda.launch_match_table(data, lengths, 1, MAX_OFFSET, MIN_MATCH)
-    LAUNCHES["table"] += 1
-    return table
-
-
 def encode(data: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
-    """Encode kernel: data uint8[B, C], lengths int32[B] in [0, C] and the
-    Snappy match table that ``match_table`` made for them, uint16[B, C], on
-    one CUDA device -> (comp uint8[B, SNAPPYMAX], comp_sizes int32[B])."""
+    """Encode kernel: data uint8[B, C], lengths int32[B] in [0, C] and their
+    match table with the Snappy limits (``lz77_cuda.match_table``),
+    uint16[B, C], on one CUDA device -> (comp uint8[B, SNAPPYMAX],
+    comp_sizes int32[B])."""
     _check(data, lengths, table)
     if data.dtype != torch.uint8 or data.dim() != 2:
         raise ValueError("data must be uint8[B, C]")
@@ -88,13 +78,6 @@ def encode(data: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
     _raise_if(err, "encode")
     LAUNCHES["encode"] += 1
     return out, sizes
-
-
-def compress(data: torch.Tensor, lengths: torch.Tensor):
-    """The match-table kernel, then the encode kernel: data uint8[B, C],
-    lengths int32[B] in [0, C] on one CUDA device -> (comp uint8[B,
-    SNAPPYMAX], comp_sizes int32[B])."""
-    return encode(data, lengths, match_table(data, lengths))
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, out_capacity: int):
