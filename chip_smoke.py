@@ -17,7 +17,13 @@ non-zero):
    streams, through both the kernels and their plain PyTorch versions; exact equality (tolerance 0: the codec is
    lossless and every output is an integer tensor).  A few default-option
    partitions are also checked against tests/oracles/cascaded_oracle.py.
-4. Cascaded main path: 256 MB of the mixed corpus and of the run-heavy corpus, as
+   Then CascadedManager's shape (256 partitions of 4 KB, one chunk each)
+   the same way, and the 8-byte route: a LONGLONG batch on the card
+   round-trips through codecs.cascaded on the plain version, equal to the
+   CPU's, with no Cascaded kernel launched, while the kernel wrapper
+   raises NotImplementedError
+4. Cascaded main path: 256 MB of the mixed corpus and of the run-heavy corpus
+   (tpucomp_torch/utils/corpus.py), as
    uint8[4096, 65536], through tpucomp_torch.cascaded_codec.compress /
    decompress on cuda:0; exact round trips, all SUCCESS, both kernels
    launched (launch counters reset just before)
@@ -48,8 +54,8 @@ non-zero):
    sequence
 9. profile: one step of each main path (Cascaded, LZ4, Snappy) under
    torch.profiler: device time by stage (LZ: table, encode, decode), the
-   largest kernels and the device's idle share; the Cascaded output
-   zero-fills timed alone
+   largest kernels, the device time of fill kernels in the step (none:
+   every kernel writes all of its outputs) and the device's idle share
 10. Snappy kernels vs plain: the cases of tests/torch_snappy_cases.py
    (chunks from 64 B to 1 MB and one of 16 MB; the match table's edge rows
    with the Snappy window, 32768 and 32769 back; the oracle's streams, the
@@ -67,8 +73,9 @@ non-zero):
 13. high-level managers: the 256 MB mixed corpus as one buffer through
    LZ4Manager, SnappyManager and CascadedManager at their default chunk
    sizes, create_manager on each artifact, exact round trips, the
-   codec's kernels launched; compress and decompress wall times, with
-   the artifact assembly and the stream slicing timed alone
+   codec's kernels launched; compress and decompress wall times (host
+   clock, one call; and CUDA-event medians of several calls), with the
+   artifact assembly and the stream slicing timed alone
 14. scaling: the LZ4 and Snappy encode walks (given the table) and decode
    kernels on the first 1,056, 2,112 and 4,096 chunks of mixed (~8, 16
    and 31 warps per SM): time per sequence or element against the warps
@@ -195,15 +202,50 @@ def phase_matrix(dev):
     decode_both("corrupt " + ",".join(labels), torch.from_numpy(rows).to(dev),
                 torch.from_numpy(szs).to(dev), o, src.shape[1])
 
+    # CascadedManager's shape: 4 KB partitions, one chunk each
+    raw = b"".join(torch_cases.profile_bytes(rng, prof, 4096 * 64, 4) for prof in ("runs", "random", "ramp", "signed"))
+    arr, lens = torch_cases.batch(raw, 256, 4096)
+    lens[-1] -= 1001
+    cases_4k = [("4 KB partitions", fields) for fields in (torch_cases.DEFAULT, torch_cases.opts(type=torch_cases.SHORT))]
+    for label, fields in cases_4k:
+        o = opts_from_fields(fields)
+        d, ln = torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev)
+        comp, sizes = kc.compress(d, ln, o)
+        want = cc._compress_plain(d, ln, o)
+        torch.cuda.synchronize()
+        err["encode"] = max(err["encode"], _equal(f"{label} encode rows", comp, want[0]),
+                            _equal(f"{label} encode sizes", sizes, want[1]))
+        n_cases += 1
+        decode_both(label, comp, sizes, o, 4096)
+        rows, szs = torch_cases.damage(rng, comp.cpu().numpy(), sizes.cpu().numpy())
+        decode_both(f"{label} damaged", torch.from_numpy(rows).to(dev), torch.from_numpy(szs).to(dev), o, 4096)
+
+    # 8-byte elements: the codec takes the plain version on the card, the kernel wrapper refuses them
+    o8 = opts_from_fields(torch_cases.opts(type=torch_cases.LONGLONG))
+    arr8, lens8 = torch_cases.config_case(rng, torch_cases.opts(type=torch_cases.LONGLONG), 4096, "runs")
+    d8, ln8 = torch.from_numpy(arr8).to(dev), torch.from_numpy(lens8).to(dev)
+    before = dict(kc.LAUNCHES)
+    comp8, sizes8 = cc.compress(d8, ln8, o8)
+    out8 = cc.decompress(comp8, sizes8, o8, arr8.shape[1])
+    torch.cuda.synchronize()
+    if kc.LAUNCHES != before or not comp8.is_cuda:
+        raise AssertionError(f"an 8-byte batch launched a Cascaded kernel: {kc.LAUNCHES} (before {before})")
+    want8 = cc._compress_plain(torch.from_numpy(arr8), torch.from_numpy(lens8), o8)
+    for part, g, w in zip(("rows", "sizes"), (comp8, sizes8), want8):
+        _equal(f"8-byte route encode {part}", g.cpu(), w)
+    for part, g, w in zip(("data", "bytes", "status"), out8, cc._decompress_plain(*want8, o8, arr8.shape[1])):
+        _equal(f"8-byte route decode {part}", g.cpu(), w)
+    kept = ln8 // 8 * 8  # lengths count whole elements
+    if bool(out8[2].any()) or not torch.equal(out8[0], d8 * (torch.arange(arr8.shape[1], device=dev) < kept[:, None])):
+        raise AssertionError("the 8-byte route does not round-trip")
     try:
         kc.compress(torch.zeros(1, 64, dtype=torch.uint8, device=dev),
-                    torch.zeros(1, dtype=torch.int32, device=dev),
-                    opts_from_fields(torch_cases.opts(type=torch_cases.LONGLONG)))
+                    torch.zeros(1, dtype=torch.int32, device=dev), o8)
     except NotImplementedError:
         pass
     else:
-        raise AssertionError("8-byte elements must raise NotImplementedError on CUDA")
-    return err, n_cases, len(cases) + 1
+        raise AssertionError("8-byte elements must raise NotImplementedError in the kernel wrapper")
+    return err, n_cases, len(cases) + 1 + len(cases_4k)
 
 
 def phase_main_path(dev, corpora):
@@ -800,8 +842,9 @@ def phase_hlif(corpora, counters, paths):
     """The 256 MB mixed corpus as one buffer through each manager at its
     default chunk size: create_manager on the artifact, exact round trip,
     the codec's kernels launched (the counters of ``paths[codec]``) and no
-    other; host-clock compress and decompress times, and the assembly and
-    slicing alone (CUDA events)."""
+    other; compress and decompress times on the host clock (one call) and
+    by CUDA events (medians of several), and the assembly and slicing
+    alone (CUDA events)."""
     import torch
 
     import tpucomp_torch
@@ -850,15 +893,21 @@ def phase_hlif(corpora, counters, paths):
                      iters=ITERS, warmup=WARMUP)
         t_slice = wall(tm._slice_streams, artifact, common, hdr.sections_offset(mgr.format_id),
                        mgr._max_comp_chunk_size(cs), iters=ITERS, warmup=WARMUP)
+        # the whole calls again, as CUDA-event medians (one host-clock call spreads)
+        t_comp = wall(mgr.compress, data, iters=ITERS, warmup=WARMUP)
+        t_decomp = wall(mgr2.decompress, artifact, iters=ITERS, warmup=WARMUP)
         out_lines[name] = {"chunk": cs, "chunks": k, "artifact_bytes": size, "compress_ms": walls["compress"],
-                           "decompress_ms": walls["decompress"], "assemble_ms": t_asm.median_ms,
+                           "decompress_ms": walls["decompress"], "compress_event_ms": t_comp.summary(),
+                           "decompress_event_ms": t_decomp.summary(), "assemble_ms": t_asm.median_ms,
                            "slice_ms": t_slice.median_ms, "launches": launched}
         print(f"phase 13 HLIF {name}: {n / 2**20:.0f} MB mixed as one buffer, {k} chunks of {cs} B, create_manager -> "
               f"{type(mgr2).__name__}, exact round trip, all SUCCESS, ratio {n / size:.4f}; compress "
               f"{walls['compress']:.3f} ms ({n / walls['compress'] / 1e6:.3f} GB/s), decompress "
               f"{walls['decompress']:.3f} ms ({n / walls['decompress'] / 1e6:.3f} GB/s) (host clock, one "
-              f"call each); alone: assembly {t_asm.median_ms:.3f} ms, slicing {t_slice.median_ms:.3f} ms "
-              f"(medians of {ITERS}); launches {launched}", flush=True)
+              f"call each); by CUDA events, median of {ITERS}: compress {t_comp.median_ms:.3f} ms "
+              f"(min {t_comp.min_ms:.3f}, max {t_comp.max_ms:.3f}), decompress {t_decomp.median_ms:.3f} ms "
+              f"(min {t_decomp.min_ms:.3f}, max {t_decomp.max_ms:.3f}); alone: assembly {t_asm.median_ms:.3f} ms, "
+              f"slicing {t_slice.median_ms:.3f} ms (medians of {ITERS}); launches {launched}", flush=True)
         del artifact, out, statuses, comp, sizes
         torch.cuda.empty_cache()
     return out_lines
@@ -868,18 +917,16 @@ def phase_profile(corpora):
     """One step of each main path (Cascaded, LZ4, Snappy) on the mixed corpus under
     torch.profiler, its stages called as the codecs call them (LZ: match
     table, encode, decode): device time by stage and by kernel, and the
-    device's idle share over the step's wall time.  The Cascaded wrappers'
-    output zero-fills are timed alone, at the wrappers' shapes."""
+    device's idle share over the step's wall time, and the device time of
+    fill kernels in the step (the wrappers allocate with torch.empty)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from tpucomp_torch.codecs import cascaded as cc
     from tpucomp_torch.core.options import CascadedOpts
     from tpucomp_torch.kernels import cascaded_cuda as kc
     from tpucomp_torch.kernels import lz4_cuda as kl
     from tpucomp_torch.kernels import snappy_cuda as ks
-    from tpucomp_torch.utils.profiling import wall
 
     data = corpora["mixed"]
     lengths = torch.full((B,), C, dtype=torch.int32, device=data.device)
@@ -901,9 +948,6 @@ def phase_profile(corpora):
             with record_function("decode"):
                 kern.decompress(comp, sizes, C)
         return step
-
-    def zeros(cols):
-        return wall(torch.zeros, B, cols, dtype=torch.uint8, device=data.device, iters=ITERS, warmup=WARMUP)
 
     def step_wall_ms(step):
         walls = []
@@ -937,13 +981,13 @@ def phase_profile(corpora):
                  "decode": f"{path}_decode_kernel"}
         kernels = {s: sum(v for k, v in work.items() if names[s] in k) for s in stages}
         top = ", ".join(f"{k[:70]} {v:.3f} ms" for k, v in sorted(work.items(), key=lambda kv: -kv[1])[:6])
-        # only the Cascaded wrappers still fill their outputs: the LZ kernels write every byte
-        fill = (zeros(cc.partition_output_max(C, o)).median_ms + zeros(C).median_ms) if path == "cascaded" else 0.0
+        # fills (torch.zeros of an output): none, as every kernel writes all of its outputs
+        fill = sum(v for k, v in work.items() if "fill" in k.lower())
         print(f"phase 9 profile {path} mixed step: wall {wall_ms:.3f} ms (median of 3, no profiler), "
               f"device busy {busy:.3f} ms (profiled step), "
               f"device idle {max(0.0, 1 - busy / wall_ms):.4f}; ranges: {', '.join(parts)}; "
               f"kernels: " + ", ".join(f"{s} {v:.3f} ms" for s, v in kernels.items() if v or s != "table")
-              + f"; output zero-fills alone {fill:.3f} ms; largest: {top}", flush=True)
+              + f"; fill kernels in the step {fill:.3f} ms; largest: {top}", flush=True)
 
 
 def main() -> int:
@@ -985,7 +1029,7 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    from bench import load_corpus, runheavy_corpus
+    from tpucomp_torch.utils.corpus import load_corpus, runheavy_corpus
 
     def make_corpora():
         return {
@@ -996,7 +1040,8 @@ def main() -> int:
     t0 = time.perf_counter()
     matrix_err, n_cases, n_inputs = phase_matrix(dev)
     print(f"phase 3 kernel vs plain: {n_cases} comparisons on {n_inputs} inputs equal "
-          f"(tolerance 0), oracle agrees ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"(tolerance 0), oracle agrees; the 8-byte route round-trips on the plain version with no "
+          f"kernel launched ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     corpora = make_corpora()
 

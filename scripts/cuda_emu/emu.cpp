@@ -42,6 +42,7 @@ void emu_run(unsigned grid, unsigned block, std::function<void()> fn) {
   blockDim = {block, 1, 1};
   for (unsigned g = 0; g < grid; ++g) {
     blockIdx = {g, 0, 0};
+    memset(emu_dynamic_smem(), 0xA5, 256 << 10);  // a block finds no zeros it did not write
     threads.assign(block, Thread{});
     slots.assign(block, 0);
     result.assign(block, 0);

@@ -1,13 +1,14 @@
-// Host emulation of the CUDA subset that the LZ4 and Snappy kernels use,
-// so they can be built with g++ and checked on a machine without a card
-// (scripts/cuda_emu/check_lz_decode.py, check_lz_encode.py).  A launch runs its blocks one
+// Host emulation of the CUDA subset that the port's kernels use, so they
+// can be built with g++ and checked on a machine without a card
+// (scripts/cuda_emu/check_lz_decode.py, check_lz_encode.py,
+// check_cascaded.py).  A launch runs its blocks one
 // after another; a block's threads run as ucontext coroutines on one OS
 // thread; every warp intrinsic is an exchange at which all 32 lanes of the
 // warp meet (a warp whose lanes diverge there aborts), __syncthreads one at
 // which the block's threads meet.  Shared memory is a function's static
 // storage, which is right because blocks never overlap; dynamic shared memory
 // (`extern __shared__`, which the check scripts rewrite to
-// emu_dynamic_smem()) one static buffer.  Nothing here
+// emu_dynamic_smem()) one static buffer, filled with 0xA5 before each block.  Nothing here
 // models timing, the memory model or the compiler: it checks logic only.
 #pragma once
 #include <climits>
@@ -115,3 +116,30 @@ inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v)
 inline unsigned atomicAdd(unsigned* p, unsigned v) { auto o = *p; *p += v; return o; }
 template <class T> inline int cudaMemcpyToSymbol(T& sym, const void* src, size_t n) { memcpy(&sym, src, n); return 0; }
 template <class T> inline int cudaMemcpyFromSymbol(void* dst, const T& sym, size_t n) { memcpy(dst, &sym, n); return 0; }
+template <class T> inline T emu_reduce(T v, bool take_max) {
+  const unsigned long long* s = emu_exchange(emu_bits(v), false);
+  T m = v;
+  for (int i = 0; i < 32; ++i) {
+    const T x = emu_from<T>(s[(threadIdx.x & ~31u) + i]);
+    m = take_max ? (x > m ? x : m) : (x < m ? x : m);
+  }
+  return m;
+}
+inline int __reduce_min_sync(unsigned, int v) { return emu_reduce(v, false); }
+inline int __reduce_max_sync(unsigned, int v) { return emu_reduce(v, true); }
+inline unsigned __reduce_min_sync(unsigned, unsigned v) { return emu_reduce(v, false); }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) { return emu_reduce(v, true); }
+// a block barrier whose result is whether any thread's predicate holds
+inline int __syncthreads_or(int pred) {
+  const unsigned long long* s = emu_exchange(pred ? 1 : 0, true);
+  int any = 0;
+  for (unsigned i = 0; i < blockDim.x; ++i) any |= (int)s[i];
+  return any;
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) { auto o = *p; *p |= v; return o; }
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  const unsigned long long* s = emu_exchange(v, false);
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) m |= (unsigned)s[(threadIdx.x & ~31u) + i];
+  return m;
+}

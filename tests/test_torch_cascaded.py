@@ -170,3 +170,20 @@ def test_port_never_imports_jax_or_tpucomp():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "tpucomp"), f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/torch_cascaded_ab.py"])
+def test_chip_scripts_never_import_the_tpu_bench(script):
+    """The card's scripts take their corpora from the port
+    (tpucomp_torch/utils/corpus.py), not from the JAX package's bench,
+    and import neither jax nor tpucomp."""
+    path = pathlib.Path(tpucomp_torch.__file__).parent.parent / script
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "tpucomp", "bench"), f"{script}: imports {name}"

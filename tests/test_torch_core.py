@@ -190,3 +190,22 @@ def test_bit_width_and_shifts():
     for w in (1, 2, 4):
         x = torch.tensor([0, 1, 2 ** (8 * w - 1), 2 ** (8 * w) - 1])
         assert bits.to_signed(x, w).tolist() == [0, 1, -(2 ** (8 * w - 1)), -1]
+
+
+@pytest.mark.parametrize("name", ["load_corpus", "runheavy_corpus"])
+def test_corpus_loaders_equal_the_bench(name):
+    """The port's copies of the bench's corpus loaders give the same bytes."""
+    import bench
+    from tpucomp_torch.utils import corpus
+
+    for total, seed in ((1 << 16, 0), (3 << 20, 5)):
+        assert getattr(corpus, name)(total, seed) == getattr(bench, name)(total, seed)
+
+
+def test_corpus_loader_raises_without_the_mixed_corpus(monkeypatch, tmp_path):
+    """A missing corpus raises; it is never replaced by other data."""
+    from tpucomp_torch.utils import corpus
+
+    monkeypatch.setattr(corpus, "MIXED", tmp_path / "mixed_v1.bin.gz")
+    with pytest.raises(FileNotFoundError, match="mixed corpus"):
+        corpus.load_corpus(1 << 16)

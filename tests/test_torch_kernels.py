@@ -76,8 +76,75 @@ def test_launch_counters_move_and_w8_raises(cuda):
     out, nbytes, status = cc.decompress(comp, sizes, o, 4096)
     assert kc.LAUNCHES == {"encode": before["encode"] + 1, "decode": before["decode"] + 1}
     assert torch.equal(out, data) and bool((status == 0).all())
+    # 8-byte elements: the codec takes the plain version on the card (the
+    # kernels do not take them), equal to the CPU's, and launches nothing;
+    # the kernel wrapper itself still refuses them
+    o8 = CascadedOpts(type=DataType.LONGLONG)
+    before = dict(kc.LAUNCHES)
+    comp, sizes = cc.compress(data, lengths, o8)
+    got = cc.decompress(comp, sizes, o8, 4096)
+    assert comp.is_cuda and kc.LAUNCHES == before
+    want = cc._compress_plain(data.cpu(), lengths.cpu(), o8)
+    _equal((comp.cpu(), sizes.cpu()), want)
+    _equal([t.cpu() for t in got], cc._decompress_plain(*want, o8, 4096))
+    assert torch.equal(got[0], data) and bool((got[2] == 0).all())
     with pytest.raises(NotImplementedError):
-        cc.compress(data, lengths, CascadedOpts(type=DataType.LONGLONG))
+        kc.compress(data, lengths, o8)
+    with pytest.raises(NotImplementedError):
+        kc.decompress(comp, sizes, o8, 4096)
+
+
+@pytest.mark.cuda
+def test_w8_codec_and_manager_round_trip_on_the_card(cuda):
+    """cascaded_codec and CascadedManager take an 8-byte batch on the card
+    through the plain version: the same streams and artifact as on the CPU,
+    an exact round trip, and no Cascaded kernel launched."""
+    import tpucomp_torch
+
+    o8 = CascadedOpts(type=DataType.LONGLONG)
+    raw = (np.arange(3000, dtype=np.int64) // 7).tobytes()
+    before = dict(kc.LAUNCHES)
+    for dev in (cuda, "cpu"):
+        batch = tpucomp_torch.pack_chunks([raw[:8000], raw[8000:20000]], device=dev)
+        comp = tpucomp_torch.cascaded_codec.compress(batch, o8)
+        out, status = tpucomp_torch.cascaded_codec.decompress(comp, batch.capacity, o8)
+        assert tpucomp_torch.unpack_chunks(out) == tpucomp_torch.unpack_chunks(batch) and not status.any()
+        artifact, size = tpucomp_torch.CascadedManager(opts=o8, device=dev).compress(raw)
+        data, statuses = tpucomp_torch.create_manager(artifact).decompress(artifact)
+        assert bytes(data.cpu().numpy()) == raw and not statuses.any()
+        if dev == cuda:
+            gpu = (comp.data.cpu(), comp.lengths.cpu(), artifact.cpu())
+    assert torch.equal(gpu[0], comp.data) and torch.equal(gpu[1], comp.lengths)
+    assert torch.equal(gpu[2], artifact)
+    assert kc.LAUNCHES == before
+
+
+@pytest.mark.parametrize("type_", [DataType.LONGLONG, DataType.ULONGLONG])
+def test_w8_batches_off_the_cpu_take_the_plain_version(monkeypatch, type_):
+    """The codec routes 8-byte element types by type alone: a batch on a
+    device other than the CPU goes to the plain version, never to the
+    kernel wrappers (which refuse them)."""
+    calls = []
+
+    def plain(name):
+        def fn(*args):
+            calls.append(name)
+            return name
+        return fn
+
+    def kernel(*args):
+        raise AssertionError("an 8-byte batch reached a kernel wrapper")
+
+    monkeypatch.setattr(cc, "_compress_plain", plain("compress"))
+    monkeypatch.setattr(cc, "_decompress_plain", plain("decompress"))
+    monkeypatch.setattr(kc, "compress", kernel)
+    monkeypatch.setattr(kc, "decompress", kernel)
+    o = CascadedOpts(type=type_)
+    rows = torch.zeros(2, 64, dtype=torch.uint8, device="meta")
+    sizes = torch.zeros(2, dtype=torch.int32, device="meta")
+    assert cc.compress(rows, sizes, o) == "compress"
+    assert cc.decompress(rows, sizes, o, 64) == "decompress"
+    assert calls == ["compress", "decompress"]
 
 
 def test_cpu_tensors_never_touch_the_kernels():

@@ -208,6 +208,25 @@ def test_lz_table_counts_only_launches(cuda, shape):
         _equal((comp, sizes), tl._compress_plain(data, lengths))
 
 
+@pytest.mark.parametrize("shape", [(2, 0), (0, 0)])
+def test_lz4_compress_refuses_zero_width_rows_on_the_cpu(shape):
+    """A batch of rows with no columns raises one ValueError before routing."""
+    data = torch.zeros(shape, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="C > 0"):
+        tl.compress(data, torch.zeros(shape[0], dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 0), (0, 0)])
+def test_lz4_compress_refuses_zero_width_rows_on_the_card(cuda, shape):
+    """The same ValueError on the card, with no kernel launched."""
+    before, table_before = dict(kl.LAUNCHES), lz77_cuda.LAUNCHES["table"]
+    data = torch.zeros(shape, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="C > 0"):
+        tl.compress(data, torch.zeros(shape[0], dtype=torch.int32, device=cuda))
+    assert kl.LAUNCHES == before and lz77_cuda.LAUNCHES["table"] == table_before
+
+
 def test_cpu_tensors_never_touch_the_lz4_kernels():
     before, table_before = dict(kl.LAUNCHES), lz77_cuda.LAUNCHES["table"]
     arr, lens = cases.batch([np.arange(3000, dtype=np.uint8) % 13, b"abc" * 100], 4096)

@@ -204,6 +204,25 @@ def test_snappy_launch_counters_move(cuda):
     assert torch.equal(out, data) and not status.any()
 
 
+@pytest.mark.parametrize("shape", [(2, 0), (0, 0)])
+def test_snappy_compress_refuses_zero_width_rows_on_the_cpu(shape):
+    """A batch of rows with no columns raises one ValueError before routing."""
+    data = torch.zeros(shape, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="C > 0"):
+        ts.compress(data, torch.zeros(shape[0], dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 0), (0, 0)])
+def test_snappy_compress_refuses_zero_width_rows_on_the_card(cuda, shape):
+    """The same ValueError on the card, with no kernel launched."""
+    before, table_before = dict(ks.LAUNCHES), lz77_cuda.LAUNCHES["table"]
+    data = torch.zeros(shape, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="C > 0"):
+        ts.compress(data, torch.zeros(shape[0], dtype=torch.int32, device=cuda))
+    assert ks.LAUNCHES == before and lz77_cuda.LAUNCHES["table"] == table_before
+
+
 def test_cpu_tensors_never_touch_the_snappy_kernels():
     before, table_before = dict(ks.LAUNCHES), lz77_cuda.LAUNCHES["table"]
     arr, lens = cases.batch([np.arange(3000, dtype=np.uint8) % 13, b"abc" * 100, b""], 4096)

@@ -21,7 +21,9 @@ formulation (the counterparts of the JAX package's ``_compress_xla`` /
 ``_decompress_xla``): dense tensor math over [batch, chunk, element] that
 runs on CPU and CUDA tensors alike.  The public ``compress`` /
 ``decompress`` route by device: a CPU tensor takes the plain formulation,
-a CUDA tensor the hand-written kernels in ``kernels/cascaded_cuda.py``.
+a CUDA tensor the hand-written kernels in ``kernels/cascaded_cuda.py``,
+except 8-byte element types, which the kernels do not take: they take the
+plain formulation on the card too.
 """
 
 from __future__ import annotations
@@ -452,10 +454,12 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: CascadedOpts):
     data: uint8[B, C]; lengths: int32[B].  Returns (comp uint8[B, PMAX],
     comp_sizes int32[B]).  Lengths that are not a multiple of the element
     width are truncated.  A CPU batch takes the plain formulation, a CUDA
-    batch the encode kernel.
+    batch the encode kernel; 8-byte element types, which the kernels do
+    not take, take the plain formulation on either device (as the JAX
+    package sends them to XLA, not to its Pallas kernels).
     """
     opts.validate()
-    if data.device.type == "cpu":
+    if data.device.type == "cpu" or width_of(opts.type) == 8:
         return _compress_plain(data, lengths, opts)
     from tpucomp_torch.kernels import cascaded_cuda
 
@@ -468,10 +472,11 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: CascadedOpts,
     Returns (data uint8[B, out_capacity], lengths int32[B], statuses
     int32[B]).  Partitions whose stream metadata does not match ``opts``
     (other than the raw fallback) report ERROR_CANNOT_DECOMPRESS.  A CPU
-    batch takes the plain formulation, a CUDA batch the decode kernel.
+    batch takes the plain formulation, a CUDA batch the decode kernel;
+    8-byte element types take the plain formulation on either device.
     """
     opts.validate()
-    if comp.device.type == "cpu":
+    if comp.device.type == "cpu" or width_of(opts.type) == 8:
         return _decompress_plain(comp, comp_sizes, opts, out_capacity)
     from tpucomp_torch.kernels import cascaded_cuda
 

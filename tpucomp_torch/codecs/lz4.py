@@ -227,6 +227,8 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: LZ4Opts | None = N
     stride = _stride(opts)
     if data.dtype != torch.uint8 or data.dim() != 2:
         raise ValueError("data must be uint8[B, C]")
+    if data.shape[1] == 0:
+        raise ValueError("data must have at least one column (C > 0)")
     lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
     if data.device.type == "cpu":
         return _compress_plain(data, lengths, stride)

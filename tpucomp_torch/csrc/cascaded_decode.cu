@@ -1,30 +1,47 @@
 // Cascaded decode kernel for NVIDIA Hopper.
 //
-// Replaces the TPU kernel tpucomp/kernels/cascaded_pallas.py::_decode_kernel
-// (_decode_one, _unpack_blob_tile, _delta_decode_tile, _rle_decode_tile).
-// Its plain PyTorch version is
+// Replaces the TPU kernel tpucomp/kernels/cascaded_pallas.py:874
+// _decode_kernel (_decode_one, _unpack_blob_tile, _delta_decode_tile,
+// _rle_decode_tile).  Its plain PyTorch version is
 // tpucomp_torch/codecs/cascaded.py::_decompress_plain; data, byte counts and
 // statuses are equal, including on corrupt input.
 //
-// Design: one CTA per partition.  Thread 0 checks the partition header;
-// the fallback raw copy is a vectorised row copy.  Otherwise the CTA walks
-// the chunk pointers (each chunk total clamped to the row size + 8, the next
-// chunk at roundUp(pos + max(total, 4), w)), and for each chunk thread 0
-// parses the metadata and checks every blob against the compressed size
-// before any blob is read.  The CTA then unpacks the final blob into shared
-// memory, inverts the schedule (delta: a block prefix sum; RLE: a block
-// scan of the run counts and a binary search per output element), and
-// stores the chunk's elements at the running element offset.  Blob reads
-// use the JAX reference's word addressing (offsets floored to a word, word
-// indices clamped into the row), so corrupt streams decode identically.
-// No write leaves the output row: the element count is checked against the
-// header's count (which fits the capacity) before each store, and a failing
-// partition zeroes what it wrote.
+// What bounds it on the H100: device-memory bytes would (one read of the
+// stream, one write of the output row), but each chunk's inverse pipeline
+// is a chain of dependent passes (unpack, RLE expansion, Delta prefix sum,
+// RLE expansion), so latency bounds it unless many chunks are in flight.
+// The first port decoded a partition's chunks one after another in one
+// CTA, with one thread parsing each chunk's metadata while 255 waited and
+// a binary search per output element.
 //
-// What bounds it on the H100: for fallback partitions, device-memory bytes
-// (one read and one write of the row); for pipeline partitions, the latency
-// of the per-chunk scans and barriers of one 256-thread CTA walking its
-// chunks in order.
+// Design: walk the chain once, decode in parallel, place after counting.
+// - One lane of the partition's first team follows the chunk chain (each
+//   total clamped to the row size + 8, the next chunk at roundUp(pos +
+//   max(total, 4), w), the walk stopping at end4 or after k chunks) for up
+//   to `slots` chunks at a time; then one lane per chunk parses its
+//   metadata and checks every blob against the compressed size before any
+//   blob is read.
+// - One warp (a team) decodes one chunk with warp primitives only: the
+//   final blob is unpacked by lane (consecutive elements on consecutive
+//   lanes), Delta is a warp scan over contiguous odd-length lane segments
+//   (conflict-free shared memory), RLE is expanded by scattering each
+//   run's start at its scanned offset and filling forward with a max-scan.
+//   Blob reads keep the JAX reference's word addressing (offsets floored
+//   to a word, word indices clamped into the row), so corrupt streams
+//   decode as there.
+// - The teams of a partition read each other's element counts: their
+//   running sum (64-bit) places each chunk's first min(n, E) elements and
+//   decides the partition, on the same conditions as the reference: a
+//   chunk fails its checks, the running count passes n_elems, the final
+//   count differs from n_elems, or chunks are left before end4.  The
+//   outcome is all or nothing, so a failed partition writes zeros over
+//   whatever it placed.
+// - Every byte of every row up to out_capacity is written (data, then
+//   zeros; or zeros), so the wrapper allocates with torch.empty.  The raw
+//   fallback is a vectorised copy.
+// - Teams per CTA are sized by the workspace (plan_teams), so a batch of
+//   one-chunk partitions (CascadedManager's default) puts several
+//   partitions in one CTA.
 //
 // The chunk element counts are summed in 64 bits; the JAX reference sums
 // them in int32, so the two could differ only on streams whose chunks claim
@@ -40,6 +57,8 @@ namespace {
 
 constexpr int kStatusSuccess = 0;
 constexpr int kStatusCannotDecompress = 12;
+constexpr long long kNoChunk = -2, kBadChunk = -1;  // chunk counts that are not counts
+constexpr uint32_t kNoRun = 0xffffffffu;
 
 struct DecodeParams {
   const uint8_t* comp;
@@ -47,9 +66,9 @@ struct DecodeParams {
   uint8_t* out;
   int32_t* out_bytes;
   int32_t* status;
-  long long row_bytes;  // CMAX
-  long long out_capacity;
+  long long batch, row_bytes, out_capacity;  // row_bytes: CMAX
   int width, dtype, elems, k, nr, nd, bp;
+  int slots, parts, arr_words;  // TeamPlan; words of each of a team's three arrays
 };
 
 // One compressed row, read as bytes (zero past its end) or as u32 words
@@ -70,122 +89,31 @@ struct Row {
     return v;
   }
 
-  // unit `idx` of `width` bytes counted from byte offset `off` floored to a word
-  __device__ uint32_t unit(long long off, long long idx, int width) const {
-    const long long base = off >> 2;
-    if (width == 4) return word(base + idx);
-    if (width == 2) return (word(base + (idx >> 1)) >> (16 * (idx & 1))) & 0xffffu;
-    return (word(base + (idx >> 2)) >> (8 * (idx & 3))) & 0xffu;
+  // u32 of the 4 bytes at byte offset `at` (no flooring)
+  __device__ uint32_t bytes4(long long at) const {
+    uint32_t v = 0;
+    for (int q = 0; q < 4; ++q) v |= (uint32_t)byte(at + q) << (8 * q);
+    return v;
   }
+
 };
 
-// A chunk's metadata, parsed by thread 0.
+// A chunk's metadata, parsed by one lane.
 struct ChunkInfo {
-  long long next, base, final_off, rle_off[8], sizes[9];
-  uint32_t firsts[8];
+  long long base, final_off, rle_off[7], sizes[9];
+  uint32_t firsts[7];
   int ok;
 };
 
-// Elements 0..e-1 of the blob at `off` (raw units or a bitpack blob) into
-// dst; returns the blob's own element count, which may exceed e.
-__device__ long long read_blob(const Row& row, long long off, long long size, int width, bool bp,
-                               uint32_t* dst, int e) {
-  const uint32_t mask = unit_mask(width);
-  const int tbits = 8 * width;
-  long long n;
-  if (!bp) {
-    n = size / width;
-    for (int i = threadIdx.x; i < e; i += kThreads) dst[i] = i < n ? row.unit(off, i, width) : 0u;
-  } else {
-    const uint32_t frame = row.word(off >> 2) & mask;
-    const uint32_t bw_word = row.word((off + 4) >> 2);
-    n = bw_word & 0xffffu;
-    const int bw = min((int)(bw_word >> 16), tbits);  // clamp corrupt widths
-    const long long da = off + 8;
-    const uint32_t vmask = bw >= tbits ? mask : ((1u << bw) - 1u);
-    for (int i = threadIdx.x; i < e; i += kThreads) {
-      uint32_t x = 0;
-      if (i < n) {
-        x = frame;
-        if (bw > 0) {
-          const long long bit0 = (long long)i * bw;
-          const long long lo = bit0 / tbits, hi = (bit0 + bw - 1) / tbits;
-          const int offs = (int)(bit0 - lo * tbits);
-          uint64_t v = (uint64_t)row.unit(da, lo, width) >> offs;
-          if (hi > lo && offs != 0) v |= (uint64_t)row.unit(da, hi, width) << (tbits - offs);
-          x = (((uint32_t)v & vmask) + frame) & mask;
-        }
-      }
-      dst[i] = x;
-    }
-  }
-  __syncthreads();
-  return n;
-}
-
-// In place: a[i] = first + sum(a[j] for j < i, j < n) for i <= n, else 0.
-__device__ void delta_decode(uint32_t* a, long long n, uint32_t first, int e, uint32_t mask,
-                             uint32_t* scratch) {
-  int lo, hi;
-  segment(e, lo, hi);
-  uint32_t local = 0;
-  for (int i = lo; i < hi; ++i) local += i < n ? a[i] : 0u;
-  uint32_t total;
-  uint32_t run = block_exclusive_scan<uint32_t>(local, scratch, total);
-  for (int i = lo; i < hi; ++i) {
-    const uint32_t v = i < n ? a[i] : 0u;
-    a[i] = i <= n ? ((first + run) & mask) : 0u;
-    run += v;
-  }
-  __syncthreads();
-}
-
-// Expands the first num_runs runs (vals, counts in z) into out[0, e); z is
-// left holding the inclusive scan of the counts.  Returns the unclipped
-// total of the counts.
-__device__ long long rle_decode(const uint32_t* vals, uint32_t* z, long long num_runs, uint32_t* out,
-                                int e, int* scratch) {
-  int lo, hi;
-  segment(e, lo, hi);
-  int local = 0;
-  for (int i = lo; i < hi; ++i) local += i < num_runs ? (int)z[i] : 0;
-  int total;
-  int run = block_exclusive_scan<int>(local, scratch, total);
-  for (int i = lo; i < hi; ++i) {
-    run += i < num_runs ? (int)z[i] : 0;
-    z[i] = (uint32_t)run;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < e; j += kThreads) {
-    uint32_t x = 0;
-    if (j < total) {  // the first run whose inclusive end is past j
-      int a = 0, b = e - 1;
-      while (a < b) {
-        const int mid = (a + b) >> 1;
-        if ((int)z[mid] > j) b = mid;
-        else a = mid + 1;
-      }
-      x = vals[a];
-    }
-    out[j] = x;
-  }
-  __syncthreads();
-  return total;
-}
-
-// Thread 0: parse the metadata of the chunk at `pos` and check every blob
-// against the compressed size.
+// The metadata of the chunk at `pos`, every blob checked against the
+// compressed size (end_words) before any is read.
 __device__ void parse_chunk(const Row& row, long long pos, long long end_words, const DecodeParams& p,
-                            int meta_size, int dh_off, ChunkInfo& ci) {
+                            ChunkInfo& ci) {
   const int w = p.width;
   const long long clamp = p.row_bytes + 8;
-  const long long total = min((long long)row.word(pos >> 2), clamp);
-  ci.next = round_up(pos + max(total, 4LL), w);
-  for (int j = 0; j < p.nr + 2; ++j) {
-    uint32_t v = 0;
-    for (int q = 0; q < 4; ++q) v |= (uint32_t)row.byte(pos + 4 * j + q) << (8 * q);
-    ci.sizes[j] = min((long long)v, clamp);
-  }
+  const int dh_off = (int)round_up(4 + 4 * (p.nr + 1), w);
+  const int meta_size = dh_off + (int)round_up(w * p.nd, 4);
+  for (int j = 0; j < p.nr + 2; ++j) ci.sizes[j] = min((long long)row.bytes4(pos + 4 * j), clamp);
   for (int d = 0; d < p.nd; ++d) {
     uint32_t v = 0;
     for (int q = 0; q < w; ++q) v |= (uint32_t)row.byte(pos + dh_off + d * w + q) << (8 * q);
@@ -203,102 +131,243 @@ __device__ void parse_chunk(const Row& row, long long pos, long long end_words, 
   ci.ok = ok;
 }
 
-// The chunked pipeline of one partition.  Returns whether it decoded.
-__device__ bool decode_pipeline(const Row& row, long long comp_size, long long n_elems,
-                                const DecodeParams& p, uint8_t* o, uint32_t* smem, ChunkInfo& ci,
-                                uint32_t* uscratch, int* iscratch) {
-  const int e = p.elems, w = p.width, tid = threadIdx.x;
-  const uint32_t mask = unit_mask(w);
-  uint32_t* buf_a = smem;
-  uint32_t* buf_b = smem + e;
-  uint32_t* z = smem + 2 * e;
-  const int dh_off = (int)round_up(4 + 4 * (p.nr + 1), w);
-  const int meta_size = dh_off + (int)round_up(w * p.nd, 4);
-  const long long end_words = comp_size / 4;  // comp_size > 0 here
-  const long long end4 = end_words * 4;
-  const long long cap_elems = p.out_capacity / w;
-
-  long long pos = kPartitionHeader, cum = 0, placed_end = 0;
-  bool ok = true;
-  for (int step = 0; step < p.k && pos < end4; ++step) {  // past end4 no chunk is live
-    if (tid == 0) parse_chunk(row, pos, end_words, p, meta_size, dh_off, ci);
-    __syncthreads();
-    if (!ci.ok) {
-      ok = false;
-      break;
-    }
-    uint32_t* cur = buf_a;
-    uint32_t* alt = buf_b;
-    long long n = read_blob(row, ci.base + ci.final_off, ci.sizes[p.nr + 1], w, p.bp, cur, e);
-    int rle_rem = p.nr, delta_rem = p.nd;
-    const int layers = max(p.nr, p.nd);
-    for (int layer = 0; layer < layers; ++layer) {
-      if (delta_rem > 0 && delta_rem >= rle_rem) {
-        delta_decode(cur, n, ci.firsts[delta_rem - 1], e, mask, uscratch);
-        n = min(n + 1, (long long)e);
-        --delta_rem;
-      }
-      if (rle_rem > 0 && rle_rem >= delta_rem) {
-        const int r = rle_rem - 1;
-        read_blob(row, ci.base + ci.rle_off[r], ci.sizes[r + 1], 2, p.bp, z, e);
-        n = rle_decode(cur, z, n, alt, e, iscratch);
-        uint32_t* t = cur; cur = alt; alt = t;
-        --rle_rem;
+// The blob at `off` (raw units or a bitpack blob) into dst, one element a
+// lane: its first min(count, e) elements, then zeros up to `zeros_to`
+// (below e).  Returns the blob's own element count, which may exceed e.  Element i is bits [i * bw, (i + 1) * bw) of the little-endian
+// stream from the word at `off + 8` (bitpack; raw: `off`, bw = 8 * width,
+// frame 0) floored, as the reference reads it unit by unit: a funnel shift
+// of the two words it lies in.  Where every word read lies inside the row
+// they are loaded directly, else through Row::word's clamping.
+__device__ long long team_read_blob(const Row& row, long long off, long long size, int width, bool bp,
+                                    uint32_t* dst, int e, long long zeros_to) {
+  const uint32_t mask = unit_mask(width);
+  const int tbits = 8 * width;
+  long long n = size / width, da = off;
+  uint32_t frame = 0;
+  int bw = tbits;
+  if (bp) {
+    frame = row.word(off >> 2) & mask;
+    const uint32_t bw_word = row.word((off + 4) >> 2);
+    n = bw_word & 0xffffu;
+    bw = min((int)(bw_word >> 16), tbits);  // clamp corrupt widths
+    da = off + 8;
+  }
+  const uint32_t vmask = bw >= 32 ? 0xffffffffu : ((1u << bw) - 1u);
+  const long long wb = da >> 2;
+  const int m = (int)min(n, (long long)e);  // elements read
+  const bool direct = row.aligned && m > 0 && 4 * (wb + (((long long)(m - 1) * bw) >> 5) + 2) <= row.bytes;
+  const uint32_t* wp = reinterpret_cast<const uint32_t*>(row.p) + wb;
+  const int count = (int)max((long long)m, min(zeros_to, (long long)e));
+  for (int i0 = lane_id(); i0 < count; i0 += 32 * kBatch) {
+    uint32_t lo[kBatch], hi[kBatch];  // kBatch elements' words in flight
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + 32 * u, j = (i * bw) >> 5;
+      lo[u] = hi[u] = 0;
+      if (i < m && bw > 0) {
+        lo[u] = direct ? wp[j] : row.word(wb + j);
+        hi[u] = direct ? wp[j + 1] : row.word(wb + j + 1);
       }
     }
-    cum += n;
-    if (cum > n_elems) {
-      ok = false;
-      break;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + 32 * u;
+      if (i < count) dst[i] = i < m ? ((__funnelshift_r(lo[u], hi[u], (i * bw) & 31) & vmask) + frame) & mask : 0u;
     }
-    // ragged concat: the chunk's first min(n, e) elements
-    const long long placed = min(n, (long long)e);
-    for (long long j = tid; j < placed; j += kThreads) {
-      const long long at = placed_end + j;
-      if (at >= cap_elems) break;
-      const uint32_t v = cur[j];
-      if (w == 4) reinterpret_cast<uint32_t*>(o)[at] = v;
-      else if (w == 2) reinterpret_cast<uint16_t*>(o)[at] = (uint16_t)v;
-      else o[at] = (uint8_t)v;
-    }
-    placed_end += placed;
-    pos = ci.next;
-    __syncthreads();  // ci and the buffers are rewritten by the next chunk
   }
-  ok = ok && cum == n_elems && pos >= end4;  // every element, every chunk consumed
-  if (!ok) {
-    const long long written = min(placed_end, cap_elems) * w;
-    for (long long i = tid; i < written; i += kThreads) o[i] = 0;
-  }
-  return ok;
+  __syncwarp();
+  return n;
 }
 
-__global__ void __launch_bounds__(kThreads) cascaded_decode_kernel(DecodeParams p) {
-  extern __shared__ uint32_t smem[];
-  __shared__ uint32_t uscratch[kWarps];
-  __shared__ int iscratch[kWarps];
-  __shared__ ChunkInfo ci;
-  const int w = p.width, b = blockIdx.x;
-  const uint8_t* src = p.comp + (long long)b * p.row_bytes;
-  const Row row{src, p.row_bytes, max(2LL, (p.row_bytes + 3) / 4), ((uintptr_t)src & 3) == 0};
-  uint8_t* o = p.out + (long long)b * p.out_capacity;
-
-  const long long comp_size = p.comp_sizes[b];
-  const int nr = row.byte(0), nd = row.byte(1), ubp = row.byte(2), dt = row.byte(3);
-  uint32_t nb = 0;
-  for (int q = 0; q < 4; ++q) nb |= (uint32_t)row.byte(4 + q) << (8 * q);
-  const long long n_bytes = (int32_t)nb;  // read as int32, as the JAX reference does
-  const long long n_elems = floor_div(n_bytes, w);
-
-  bool ok = comp_size >= kPartitionHeader && p.out_capacity >= n_bytes;
-  if (ok && nr == 0 && nd == 0 && ubp == 0) {  // raw fallback
-    ok = comp_size >= kPartitionHeader + n_elems * w;
-    if (ok) copy_bytes(o, src + kPartitionHeader, min(n_elems * w, p.row_bytes - kPartitionHeader));
-  } else if (ok) {
-    ok = nr == p.nr && nd == p.nd && ubp == p.bp && dt == p.dtype &&
-         decode_pipeline(row, comp_size, n_elems, p, o, smem, ci, uscratch, iscratch);
+// In place: a[i] = first + sum(a[j] for j < i, j < n) for i <= n, i < e.
+__device__ void team_delta_decode(uint32_t* a, long long n, uint32_t first, int e, uint32_t mask) {
+  const int live = (int)min(n + 1, (long long)e);
+  const Seg sg = lane_segment(live);
+  uint32_t local = 0;
+  for (int i = sg.lo; i < sg.hi; ++i) local += i < n ? a[i] : 0u;
+  uint32_t total;
+  uint32_t run = warp_exclusive_scan(local, total);
+  for (int i = sg.lo; i < sg.hi; ++i) {
+    const uint32_t v = i < n ? a[i] : 0u;
+    a[i] = (first + run) & mask;
+    run += v;
   }
-  if (threadIdx.x == 0) {
+  __syncwarp();
+}
+
+// Expands the first num_runs runs (values in vals, counts in z) into
+// out[0, min(total, e)): each run with a count marks its start (its scanned
+// offset, if below e) with its index + 1, and a max-scan fills every
+// element with the last run started at or before it.  The scans cover the
+// runs and the elements that exist, not all e.  z is overwritten.  Returns
+// the unclipped total of the counts.
+__device__ long long team_rle_decode(const uint32_t* vals, uint32_t* z, long long num_runs, uint32_t* out,
+                                     int e) {
+  const int runs = (int)min(num_runs, (long long)e);
+  Seg sg = lane_segment(runs);
+  int local = 0;
+  for (int i = sg.lo; i < sg.hi; ++i) local += (int)z[i];
+  int total;
+  int run = warp_exclusive_scan(local, total);
+  const int live = min(total, e);
+  for (int i = sg.lo; i < sg.hi; ++i) {
+    const int c = (int)z[i];
+    z[i] = (c > 0 && run < e) ? (uint32_t)run : kNoRun;
+    run += c;
+  }
+  for (int j = lane_id(); j < live; j += 32) out[j] = 0;
+  __syncwarp();
+  for (int i = sg.lo; i < sg.hi; ++i)
+    if (z[i] != kNoRun) out[z[i]] = (uint32_t)i + 1;
+  __syncwarp();
+  sg = lane_segment(live);
+  uint32_t m = 0;
+  for (int j = sg.lo; j < sg.hi; ++j) m = max(m, out[j]);
+  m = warp_exclusive_max(m);
+  for (int j = sg.lo; j < sg.hi; ++j) {
+    m = max(m, out[j]);
+    out[j] = m ? vals[m - 1] : 0u;
+  }
+  __syncwarp();
+  return total;
+}
+
+// The inverse op schedule of one chunk by one warp; `cur` ends holding the
+// chunk's elements (the two arrays swap roles at each RLE expansion).
+// Returns their count (which may exceed e).
+__device__ long long decode_chunk(const Row& row, const ChunkInfo& ci, const DecodeParams& p, uint32_t*& cur,
+                                  uint32_t*& alt, uint32_t* z) {
+  const int e = p.elems, w = p.width;
+  const uint32_t mask = unit_mask(w);
+  // no stage reads past its input's count (the counts read up to the runs
+  // they expand), so elements past a stage's count are left as they are
+  long long n = team_read_blob(row, ci.base + ci.final_off, ci.sizes[p.nr + 1], w, p.bp, cur, e, 0);
+  int rle_rem = p.nr, delta_rem = p.nd;
+  const int layers = max(p.nr, p.nd);
+  for (int layer = 0; layer < layers; ++layer) {
+    if (delta_rem > 0 && delta_rem >= rle_rem) {
+      team_delta_decode(cur, n, ci.firsts[delta_rem - 1], e, mask);
+      n = min(n + 1, (long long)e);
+      --delta_rem;
+    }
+    if (rle_rem > 0 && rle_rem >= delta_rem) {
+      const int r = rle_rem - 1;
+      team_read_blob(row, ci.base + ci.rle_off[r], ci.sizes[r + 1], 2, p.bp, z, e, n);
+      n = team_rle_decode(cur, z, n, alt, e);
+      uint32_t* t = cur; cur = alt; alt = t;
+      --rle_rem;
+    }
+  }
+  return n;
+}
+
+__global__ void __launch_bounds__(32 * kMaxTeams) cascaded_decode_kernel(DecodeParams p) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ ChunkInfo info[kMaxTeams];
+  __shared__ long long chunk_at[kMaxTeams];  // each team's chunk position, or kNoChunk
+  __shared__ long long counts[kMaxTeams];    // each team's element count, kNoChunk or kBadChunk
+  __shared__ long long walk_end[kMaxTeams];
+  const int team = threadIdx.x >> 5, lane = lane_id();
+  const int e = p.elems, w = p.width;
+  uint32_t* cur = smem + (long long)team * 3 * p.arr_words;
+  uint32_t* alt = cur + p.arr_words;
+  uint32_t* z = alt + p.arr_words;
+
+  // this team's partition, and its slot among the partition's teams
+  const int q = team / p.slots, s = team % p.slots;
+  const long long b = (long long)blockIdx.x * p.parts + q;
+  const bool mine = q < p.parts && b < p.batch;
+  const uint8_t* src = p.comp + (mine ? b : 0) * p.row_bytes;
+  const Row row{src, p.row_bytes, max(2LL, (p.row_bytes + 3) / 4), ((uintptr_t)src & 3) == 0};
+  uint8_t* o = p.out + (mine ? b : 0) * p.out_capacity;
+
+  const long long comp_size = mine ? p.comp_sizes[b] : 0;
+  const int nr = row.byte(0), nd = row.byte(1), ubp = row.byte(2), dt = row.byte(3);
+  const long long n_bytes = (int32_t)row.bytes4(4);  // read as int32, as the JAX reference does
+  const long long n_elems = floor_div(n_bytes, w);
+  const long long cap_elems = p.out_capacity / w;
+  const bool hdr_ok = comp_size >= kPartitionHeader && p.out_capacity >= n_bytes;
+  const bool is_fallback = nr == 0 && nd == 0 && ubp == 0;
+  bool ok = mine && hdr_ok && !is_fallback && nr == p.nr && nd == p.nd && ubp == p.bp && dt == p.dtype;
+  const long long end_words = comp_size / 4;
+  const long long end4 = end_words * 4;
+  long long cum = 0, placed_end = 0;  // elements counted and placed so far
+  long long pos = kPartitionHeader;   // the walk (lane 0 of team slot 0)
+  int steps = 0;
+  // the walk's loads depend on each other: ask for the row's lines first
+  if (ok)
+    for (long long at = 128LL * (s * 32 + lane); at < min(end4, p.row_bytes); at += 128LL * 32 * p.slots)
+      prefetch_l2(src + at);
+
+  for (;;) {
+    // walk and parse the next group of chunks
+    bool any = false;
+    if (mine && s == 0) {
+      long long at = kNoChunk;
+      for (int j = 0; j < p.slots; ++j) {
+        const bool live = ok && steps < p.k && pos < end4;
+        if (lane == j) at = live ? pos : kNoChunk;
+        if (live) {
+          const long long total = min((long long)row.word(pos >> 2), p.row_bytes + 8);
+          pos = round_up(pos + max(total, 4LL), w);
+          ++steps;
+        }
+      }
+      if (lane < p.slots) {
+        chunk_at[team + lane] = at;
+        if (at >= 0) parse_chunk(row, at, end_words, p, info[team + lane]);
+      }
+      if (lane == 0) walk_end[q] = pos;
+      any = __any_sync(kFull, at >= 0);
+    }
+    if (!__syncthreads_or(any)) break;
+    long long n = kNoChunk;
+    if (mine && chunk_at[team] >= 0) {
+      n = kBadChunk;
+      if (info[team].ok) n = decode_chunk(row, info[team], p, cur, alt, z);
+    }
+    if (lane == 0) counts[team] = n;
+    __syncthreads();
+    if (!mine) continue;
+    long long before = 0, round = 0;
+    for (int j = 0; j < p.slots; ++j) {
+      const long long c = counts[q * p.slots + j];
+      if (c == kBadChunk) ok = false;
+      if (c < 0) continue;
+      cum += c;
+      before += j < s ? min(c, (long long)e) : 0;
+      round += min(c, (long long)e);
+    }
+    ok = ok && cum <= n_elems;
+    if (ok && n >= 0) {  // the chunk's first min(n, e) elements, in the row's capacity
+      const long long at0 = placed_end + before;
+      const long long placed = min(min(n, (long long)e), cap_elems - at0);
+      for (long long j = lane; j < placed; j += 32) {
+        const uint32_t v = cur[j];
+        if (w == 4) reinterpret_cast<uint32_t*>(o)[at0 + j] = v;
+        else if (w == 2) reinterpret_cast<uint16_t*>(o)[at0 + j] = (uint16_t)v;
+        else o[at0 + j] = (uint8_t)v;
+      }
+    }
+    placed_end += round;
+  }
+
+  // the partition's teams write the rest of its row and its status
+  if (!mine) return;
+  const int tid = s * 32 + lane, nth = p.slots * 32;
+  long long end = 0;  // bytes of data at the row's start
+  if (is_fallback) {
+    ok = hdr_ok && comp_size >= kPartitionHeader + n_elems * w;
+    if (ok) {
+      end = max(0LL, min(n_elems * w, p.row_bytes - kPartitionHeader));
+      copy_bytes(o, src + kPartitionHeader, end, tid, nth);
+    }
+  } else {
+    ok = ok && cum == n_elems && walk_end[q] >= end4;  // every element, every chunk consumed
+    if (ok) end = min(placed_end, cap_elems) * w;
+  }
+  zero_bytes(o + end, p.out_capacity - end, tid, nth);
+  if (tid == 0) {
     p.out_bytes[b] = ok ? (int32_t)(n_elems * w) : 0;
     p.status[b] = ok ? kStatusSuccess : kStatusCannotDecompress;
   }
@@ -314,14 +383,17 @@ extern "C" int tc_cascaded_decode(const void* comp, const void* comp_sizes, void
                                   long long row_bytes, long long out_capacity, int width, int dtype,
                                   int elems, int k, int nr, int nd, int bp, void* stream) {
   using namespace tpucomp;
+  const long long arr_words = round_up(elems, 4);
+  const TeamPlan plan = plan_teams(3 * 4 * arr_words, k);
   DecodeParams p{static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_sizes),
                  static_cast<uint8_t*>(out), static_cast<int32_t*>(out_bytes),
-                 static_cast<int32_t*>(status), row_bytes, out_capacity, width, dtype, elems, k,
-                 nr, nd, bp};
-  const size_t smem = 3 * sizeof(uint32_t) * (size_t)elems;
+                 static_cast<int32_t*>(status), batch, row_bytes, out_capacity, width, dtype, elems, k,
+                 nr, nd, bp, plan.slots, plan.parts, (int)arr_words};
+  const size_t smem = (size_t)(plan.teams * plan.ws_bytes);
   cudaError_t err = cudaFuncSetAttribute(cascaded_decode_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cascaded_decode_kernel<<<(unsigned)batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  const unsigned grid = (unsigned)((batch + plan.parts - 1) / plan.parts);
+  cascaded_decode_kernel<<<grid, 32 * plan.teams, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -1,30 +1,58 @@
 // Cascaded encode kernel (RLE / Delta / FOR + bitpack) for NVIDIA Hopper.
 //
-// Replaces the TPU kernel tpucomp/kernels/cascaded_pallas.py::_encode_kernel
-// (bodies _pipeline_body and _assembly_body).  Its plain PyTorch version is
-// tpucomp_torch/codecs/cascaded.py::_compress_plain; the bytes are equal.
+// Replaces the TPU kernel tpucomp/kernels/cascaded_pallas.py:294
+// _encode_kernel (bodies _pipeline_body and _assembly_body).  Its plain
+// PyTorch version is tpucomp_torch/codecs/cascaded.py::_compress_plain; the
+// bytes are equal.
 //
-// Design: one CTA per partition.  The CTA walks the partition's scheme
-// chunks in order: it loads a chunk's elements into shared memory, runs the
-// static op schedule (RLE before Delta within each layer) with block scans
-// and reductions, bit-packs each emitted array straight into the output row
-// (each thread assembles whole u32 words, so no atomics), and writes the
-// chunk metadata.  Chunk offsets are the running sum of chunk totals, which
-// is sequential inside the CTA.  The raw-copy fallback is decided the way
-// the format defines it: as soon as a blob would end past
-// 8 + roundUp4(input_bytes), the pipeline stops, because the fallback is
-// then certain; no classifier pass is needed.
+// What bounds it on the H100: device-memory bytes would (one read of the
+// input, one write of the output row), but a chunk's pipeline is a chain
+// of dependent passes (loads, RLE, Delta, RLE, three bit-packings), so
+// latency bounds it unless many chunks are in flight.  A design that gives a partition's chunks to one CTA in turn
+// (the first port's) pays a dozen CTA barriers per chunk with 4 elements
+// a thread.
 //
-// What bounds it on the H100: for fallback partitions, device-memory bytes
-// (one read of the input row, one write of the output row, copied in
-// 8- or 16-byte vectors where the rows are aligned); for pipeline
-// partitions, the latency of the per-chunk block scans and barriers, since
-// one CTA of 256 threads walks its chunks one after another.  Occupancy
-// (up to 8 CTAs per SM at the default 4 KB chunks, 12 bytes of shared
-// memory per element) hides part of that latency.
+// Design: chunks in parallel, sizes before bytes, every byte written.
+// - One warp (a team) encodes one scheme chunk with warp primitives only,
+//   in rounds of 32 consecutive elements, one a lane (coalesced,
+//   conflict-free shared memory, and rounds independent of each other but
+//   for a running count): RLE in one pass (run ends by comparing with the
+//   next element, run ranks by ballot and popc), Delta, and bit-packing
+//   without atomics (a round of 32 elements fills exactly bw words, built
+//   by __reduce_or_sync or gathered by shuffles; see team_pack).  The
+//   frame and bit width of each blob come from the range of its units,
+//   which the pass that writes them gathers (__reduce_min/max_sync), so
+//   no pass reads a blob's units twice.  A batch of rounds issues all its
+//   shared-memory loads before its stores (kRounds).
+// - Every offset inside a chunk is relative to the chunk's metadata, and
+//   for widths 1, 2 and 4 every one is a multiple of 4, so a team stages
+//   its whole chunk (metadata and RLE-count blobs in its staging area,
+//   the final blob in its dead working array) without knowing where the
+//   chunk lands.  The teams of a partition then read each other's chunk
+//   totals: the running offset gives each its place, and the partition's
+//   size gives the raw-copy fallback as one decision, the same rule as the
+//   format's per-blob check, since blob ends only grow: no layer is
+//   enabled, or the last blob ends past 8 + roundUp4(input_bytes).  Teams
+//   copy their staged chunks to the row with the widest stores the
+//   alignment allows.  A partition with more chunks than teams loops over
+//   groups of chunks, carrying the running offset; once it passes the
+//   limit, the fallback is certain, the partition stops, and nothing more
+//   of it is staged or copied.  A fallback partition copies the row raw.
+// - The kernel writes every byte of every row up to PMAX (chunks, then
+//   zeros; or the raw copy, then zeros) and every size, so the wrapper
+//   allocates its outputs with torch.empty.
+// - Teams per CTA are sized by the workspace (plan_teams): the 64 KB main
+//   path gives four teams to each partition's 16 chunks; CascadedManager's
+//   4 KB partitions (one chunk each) put four partitions in one CTA.
+// - Where a team's arrays and staging area do not fit shared memory
+//   (1-byte elements in 16 KB chunks with many RLE layers), one team per
+//   CTA encodes the partition's chunks in order and writes them straight
+//   into the row, whose offsets it then knows ("direct" mode).
 //
 // Supported: element widths 1, 2 and 4; every validated option set.  The
 // 8-byte element types are refused by the Python wrapper.
+
+#include <climits>
 
 #include "cascaded_common.cuh"
 
@@ -36,9 +64,10 @@ struct EncodeParams {
   const int32_t* lengths;
   uint8_t* out;
   int32_t* sizes;
-  long long row_bytes;  // C
-  long long pmax;
+  long long batch, row_bytes, pmax;  // row_bytes: C
   int width, dtype, elems, k, nr, nd, bp;
+  int slots, parts;                       // TeamPlan
+  int arr_words, ends_words, stage_words;  // a team's workspace; stage_words 0: direct
 };
 
 // Unsigned element at element index gi of an input row; bytes past the
@@ -57,209 +86,335 @@ __device__ __forceinline__ uint32_t load_elem(const uint8_t* in, long long row_b
   return v;
 }
 
-// Frame of reference and bit width of v[0, n): signed min/max, the range in
-// wrapping u32 math; both 0 for n == 0.
-__device__ void for_bitwidth(const uint32_t* v, int n, int width, uint32_t& frame, int& bw,
-                             int32_t* scratch) {
-  int lo, hi;
-  segment(n, lo, hi);
-  int32_t mn = INT32_MAX, mx = INT32_MIN;
-  for (int i = lo; i < hi; ++i) {
-    const int32_t s = sext(v[i], width);
-    mn = min(mn, s);
-    mx = max(mx, s);
+// The signed minimum and maximum of a set of units (a blob's frame of
+// reference and bit width), gathered by the pass that writes the units.
+struct Range {
+  int mn = INT_MAX, mx = INT_MIN;
+  __device__ void add(int v) {
+    mn = min(mn, v);
+    mx = max(mx, v);
   }
-  block_min_max(mn, mx, scratch);
-  frame = n ? ((uint32_t)mn & unit_mask(width)) : 0u;
-  bw = n ? bit_width32((uint32_t)mx - (uint32_t)mn) : 0;
-}
+  __device__ Range reduced() const { return {__reduce_min_sync(kFull, mn), __reduce_max_sync(kFull, mx)}; }
+};
 
-__device__ __forceinline__ long long blob_size(bool bp, int n, int bw, int width) {
-  return bp ? 8 + 4 * (((long long)n * bw + 31) >> 5) : (long long)n * width;
-}
-
-// Writes the blob of v[0, n) at dst (4-byte aligned): a bitpack blob
-// (u32 frame, u32 (bw << 16) | n, then the little-endian bit stream) or the
-// raw units, zero-padded to a word.  Each thread builds whole output words.
-// Only the first `room` words are written: the row ends there (the plain
-// version truncates its assembled row the same way).
-__device__ void write_blob(uint32_t* dst, long long room, const uint32_t* v, int n, int width,
-                           bool bp, uint32_t frame, int bw) {
-  const uint32_t mask = unit_mask(width);
-  if (bp) {
-    if (threadIdx.x == 0) {
-      if (room > 0) dst[0] = frame;
-      if (room > 1) dst[1] = ((uint32_t)bw << 16) | (uint32_t)n;
+// Runs of cur[0, n): each run's value to vals[r], its end (index + 1) to
+// ends[r].  One pass of rounds of 32 elements, one a lane: a run ends where
+// an element differs from the next; its rank is the ends before it (a
+// ballot and a popc), and its length is its end minus the end before it
+// (the next lower end lane of the round, or the round's carry).  Also
+// gives the range of the lengths and, where `last` (no stage follows, so
+// the values are the final blob's), of the run values (units of `width`).
+// Returns the run count.
+__device__ int team_rle(const uint32_t* cur, int n, int width, bool last, uint32_t* vals, uint16_t* ends,
+                        Range& vr, Range& cr) {
+  const int lane = lane_id();
+  const unsigned below = (1u << lane) - 1u;
+  int base = 0, carry = 0;  // runs so far, and the end of the last
+  Range v_range, c_range;
+  for (int r0 = 0; r0 < n; r0 += 32 * kRounds) {
+    uint32_t v[kRounds], next[kRounds];  // every load of the batch before any store
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int i = r0 + 32 * u + lane;
+      v[u] = i < n ? cur[i] : 0u;
+      next[u] = i + 1 < n ? cur[i + 1] : 0u;
     }
-    const long long nwords = min(((long long)n * bw + 31) >> 5, room - 2);
-    for (long long j = threadIdx.x; j < nwords; j += kThreads) {
-      const long long bitlo = 32 * j;
-      const int first = (int)(bitlo / bw);
-      const int last = (int)min((long long)n - 1, (bitlo + 31) / bw);
-      uint32_t acc = 0;
-      for (int i = first; i <= last; ++i) {
-        const uint32_t u = (v[i] - frame) & mask;
-        const long long sh = (long long)i * bw - bitlo;  // in (-bw, 32)
-        acc |= sh >= 0 ? (u << sh) : (u >> -sh);
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int i = r0 + 32 * u + lane;
+      const bool end = i < n && (i == n - 1 || v[u] != next[u]);
+      const unsigned m = __ballot_sync(kFull, end);
+      if (end) {
+        const unsigned lower = m & below;
+        const int r = base + __popc(lower);
+        vals[r] = v[u];
+        ends[r] = (uint16_t)(i + 1);
+        if (last) v_range.add(sext(v[u], width));
+        c_range.add(i + 1 - (lower ? r0 + 32 * u + 32 - __clz(lower) : carry));
       }
-      dst[2 + j] = acc;
+      base += __popc(m);
+      if (m) carry = r0 + 32 * u + 32 - __clz(m);
+    }
+  }
+  vr = v_range.reduced();
+  cr = c_range.reduced();
+  __syncwarp();
+  return base;
+}
+
+// The blob of value(0..n), whose units of `width` span `range`: a bitpack
+// blob (u32 frame, u32 (bw << 16) | n at hdr, then the little-endian bit
+// stream at data) or the raw units, zero-padded to a word (a bit stream of
+// 8 * width bits an element and frame 0) at data.  Only words below
+// hdr_room and data_room are written.  Returns the blob's size in bytes.
+//
+// Rounds of 32 elements, one a lane: round r's 32 * bw bits are exactly
+// the words [r * bw, (r + 1) * bw), and lane j < bw writes word j of the
+// round.  Narrow elements (bw < 8): each lane's bits fall into at most two
+// of the round's words, and word j is the OR over lanes of their share of
+// it (__reduce_or_sync).  Wide elements: word j spans at most five
+// elements, which lane j gathers by shuffles.  No atomics, no zero-fill:
+// every word below the blob's end is written once.
+template <class Value>
+__device__ uint32_t team_pack(Value value, int n, int width, bool bp, Range range, uint32_t* hdr,
+                              long long hdr_room, uint32_t* data, long long room) {
+  const int lane = lane_id();
+  const uint32_t mask = unit_mask(width);
+  uint32_t frame = 0;
+  int bw = 8 * width;
+  if (bp) {
+    frame = n ? ((uint32_t)range.mn & mask) : 0u;
+    bw = n ? bit_width32((uint32_t)range.mx - (uint32_t)range.mn) : 0;
+    if (lane == 0) {
+      if (hdr_room > 0) hdr[0] = frame;
+      if (hdr_room > 1) hdr[1] = ((uint32_t)bw << 16) | (uint32_t)n;
+    }
+  }
+  const int nwords = (int)(((long long)n * bw + 31) >> 5);
+  const int lim = (int)min((long long)nwords, max(room, 0LL));
+  if (bw > 0 && bw < 8) {
+    const int bit = lane * bw, wa = bit >> 5, sa = bit & 31;  // this lane's bits: word wa of the round, at sa
+    for (int r0 = 0; r0 < n; r0 += 32) {
+      const int i = r0 + lane;
+      const uint32_t u = i < n ? (value(i) - frame) & mask : 0u;
+      const uint32_t lo = u << sa, hi = sa + bw > 32 ? u >> (32 - sa) : 0u;
+      uint32_t mine = 0;
+      for (int j = 0; j < bw; ++j) {
+        const uint32_t word = __reduce_or_sync(kFull, wa == j ? lo : (wa + 1 == j ? hi : 0u));
+        if (lane == j) mine = word;
+      }
+      const int wi = (r0 >> 5) * bw + lane;
+      if (lane < bw && wi < lim) data[wi] = mine;
+    }
+  } else if (bw >= 8) {
+    // word `lane` of a round holds the elements first..last of the round
+    const int first = lane < bw ? (32 * lane) / bw : 31;
+    const int last = lane < bw ? min(31, (32 * lane + 31) / bw) : 30;
+    const int spans = __reduce_max_sync(kFull, last - first + 1);
+    for (int r0 = 0; r0 < n; r0 += 32 * kRounds) {
+      uint32_t us[kRounds];  // every load of the batch before any store
+#pragma unroll
+      for (int u = 0; u < kRounds; ++u) {
+        const int i = r0 + 32 * u + lane;
+        us[u] = i < n ? (value(i) - frame) & mask : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kRounds; ++u) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          if (k >= spans) break;
+          const int src = min(first + k, 31);
+          const uint32_t x = __shfl_sync(kFull, us[u], src);
+          const int sh = src * bw - 32 * lane;  // in (-bw, 32) for the elements of this word
+          if (first + k <= last) word |= sh >= 0 ? x << sh : x >> -sh;
+        }
+        const int wi = ((r0 >> 5) + u) * bw + lane;
+        if (lane < bw && wi < lim) data[wi] = word;
+      }
+    }
+  }
+  __syncwarp();
+  return bp ? 8u + 4u * (uint32_t)nwords : (uint32_t)(n * width);
+}
+
+struct Staged {
+  int total;             // the chunk's bytes
+  int head_words;        // metadata, RLE-count blobs, final blob's header: in the staging area
+  const uint32_t* tail;  // the final blob's data (staged mode)
+};
+
+// One chunk (elements [e0, e0 + cn) of the row) through the op schedule by
+// one warp.  The metadata, the RLE-count blobs and the final blob's header
+// go to `stage` (its first `room` words are writable); the final blob's
+// data to the dead working array (staged) or after them (direct, where
+// `stage` is the chunk's place in the output row).
+template <bool kDirect>
+__device__ Staged encode_chunk(const EncodeParams& p, const uint8_t* in, long long e0, int cn,
+                               uint32_t* A, uint32_t* B, uint16_t* ends, uint32_t* stage,
+                               long long room) {
+  const int w = p.width, lane = lane_id();
+  const uint32_t mask = unit_mask(w);
+  const uint8_t* src = in + e0 * w;
+  Range range;  // of the units in cur, where they are the final blob's
+  const int layers = max(p.nr, p.nd);
+  if (((uintptr_t)src & 15) == 0 && (e0 + cn) * w <= p.row_bytes) {
+    // 16 bytes a lane, kBatch loads in flight, then 16 / w elements each
+    const int nv = cn * w / 16, per = 16 / w;
+    const uint4* v = reinterpret_cast<const uint4*>(src);
+    for (int b0 = 0; b0 < nv; b0 += 32 * kBatch) {
+      uint4 r[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = b0 + u * 32 + lane;
+        if (j < nv) r[u] = v[j];
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = b0 + u * 32 + lane;
+        if (j >= nv) continue;
+        const uint32_t words[4] = {r[u].x, r[u].y, r[u].z, r[u].w};
+        for (int q = 0; q < per; ++q) {
+          const uint32_t x = (words[q * w >> 2] >> (8 * ((q * w) & 3))) & mask;
+          A[j * per + q] = x;
+          if (!layers) range.add(sext(x, w));
+        }
+      }
+    }
+    for (int i = nv * per + lane; i < cn; i += 32) {
+      A[i] = load_elem(in, p.row_bytes, e0 + i, w, true);
+      if (!layers) range.add(sext(A[i], w));
     }
   } else {
-    const long long nbytes = (long long)n * width;
-    const long long nwords = min((nbytes + 3) >> 2, room);
-    for (long long j = threadIdx.x; j < nwords; j += kThreads) {
-      uint32_t acc = 0;
-      for (int q = 0; q < 4; ++q) {
-        const long long byte = 4 * j + q;
-        if (byte < nbytes) acc |= ((v[byte / width] >> (8 * (byte % width))) & 0xffu) << (8 * q);
+    const bool aligned = ((uintptr_t)in % w) == 0;
+    for (int i = lane; i < cn; i += 32) {
+      A[i] = load_elem(in, p.row_bytes, e0 + i, w, aligned);
+      if (!layers) range.add(sext(A[i], w));
+    }
+  }
+  range = range.reduced();
+  const int dh_off = 4 + 4 * (p.nr + 1);  // a multiple of w for w <= 4
+  const int meta_words = (dh_off + (int)round_up(w * p.nd, 4)) >> 2;
+  for (int j = (dh_off >> 2) + lane; j < meta_words; j += 32)
+    if (j < room) stage[j] = 0;  // delta headers are ORed in below
+  __syncwarp();
+
+  uint32_t* cur = A;
+  uint32_t* alt = B;
+  int n = cn, pos = meta_words;
+  const int hw = p.bp ? 2 : 0;  // a blob's header words
+  for (int layer = 0; layer < layers; ++layer) {
+    if (layer < p.nr) {
+      Range counts;
+      const bool last = layer + 1 >= layers && layer >= p.nd;  // no Delta after it
+      const int runs = team_rle(cur, n, w, last, alt, ends, range, counts);
+      const uint32_t size = team_pack(
+          [&](int i) { return (uint32_t)ends[i] - (i ? (uint32_t)ends[i - 1] : 0u); }, runs, 2, p.bp, counts,
+          stage + pos, room - pos, stage + pos + hw, room - pos - hw);
+      if (lane == 0 && 1 + layer < room) stage[1 + layer] = size;
+      pos += (int)(round_up(size, 4) >> 2);
+      uint32_t* t = cur; cur = alt; alt = t;
+      n = runs;
+    }
+    if (layer < p.nd) {
+      const int byte = dh_off + layer * w;  // this layer's first value, w bytes
+      if (lane == 0 && n > 0 && (byte >> 2) < room) stage[byte >> 2] |= (cur[0] & mask) << (8 * (byte & 3));
+      Range deltas;
+      for (int i0 = lane; i0 < n - 1; i0 += 32 * kRounds) {
+        uint32_t d[kRounds];  // every load of the batch before any store
+#pragma unroll
+        for (int u = 0; u < kRounds; ++u) {
+          const int i = i0 + 32 * u;
+          d[u] = i < n - 1 ? (cur[i + 1] - cur[i]) & mask : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < kRounds; ++u) {
+          const int i = i0 + 32 * u;
+          if (i < n - 1) {
+            alt[i] = d[u];
+            if (layer + 1 >= layers) deltas.add(sext(d[u], w));
+          }
+        }
       }
-      dst[j] = acc;
+      range = deltas.reduced();
+      __syncwarp();
+      uint32_t* t = cur; cur = alt; alt = t;
+      n = max(n - 1, 0);
     }
   }
-}
-
-// Runs of cur[0, n): values to vals[r], lengths to counts[r].  Returns the
-// run count.
-__device__ int rle_encode(const uint32_t* cur, int n, uint32_t* vals, uint32_t* counts,
-                          int* scratch) {
-  int lo, hi;
-  segment(n, lo, hi);
-  int local = 0;
-  for (int i = lo; i < hi; ++i) local += (i == n - 1) || (cur[i] != cur[i + 1]);
-  int runs;
-  const int r0 = block_exclusive_scan<int>(local, scratch, runs);
-  int r = r0;
-  for (int i = lo; i < hi; ++i)
-    if (i == n - 1 || cur[i] != cur[i + 1]) {
-      vals[r] = cur[i];
-      counts[r] = i + 1;  // run end + 1, turned into a length below
-      ++r;
-    }
-  __syncthreads();
-  uint32_t prev = (local && r0) ? counts[r0 - 1] : 0u;
-  __syncthreads();
-  for (int q = r0; q < r0 + local; ++q) {
-    const uint32_t end = counts[q];
-    counts[q] = end - prev;
-    prev = end;
+  // the final blob follows the counts blobs (aligned to w <= 4 already)
+  uint32_t* fdata = kDirect ? stage + pos + hw : alt;
+  const uint32_t size = team_pack([&](int i) { return cur[i]; }, n, w, p.bp, range, stage + pos, room - pos, fdata,
+                                  kDirect ? room - pos - hw : (long long)p.arr_words);
+  const int total = 4 * pos + (int)round_up(size, 4);
+  if (lane == 0) {
+    if (room > 0) stage[0] = (uint32_t)total;
+    if (1 + p.nr < room) stage[1 + p.nr] = size;
   }
-  __syncthreads();
-  return runs;
+  __syncwarp();
+  return {total, pos + hw, fdata};
 }
 
-// out[i] = cur[i+1] - cur[i] (wrapping in the element width) for i < n - 1.
-// Returns cur[0] (0 for n == 0).
-__device__ uint32_t delta_encode(const uint32_t* cur, int n, uint32_t* out, uint32_t mask) {
-  for (int i = threadIdx.x; i < n - 1; i += kThreads) out[i] = (cur[i + 1] - cur[i]) & mask;
-  const uint32_t first = n > 0 ? cur[0] : 0u;
-  __syncthreads();
-  return first;
-}
+template <bool kDirect>
+__global__ void __launch_bounds__(32 * kMaxTeams) cascaded_encode_kernel(EncodeParams p) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int totals[kMaxTeams];
+  const int team = threadIdx.x >> 5, lane = lane_id();
+  const int e = p.elems, w = p.width;
+  uint32_t* A = smem + (long long)team * (2 * p.arr_words + p.ends_words + p.stage_words);
+  uint32_t* B = A + p.arr_words;
+  uint16_t* ends = reinterpret_cast<uint16_t*>(B + p.arr_words);
+  uint32_t* stage = B + p.arr_words + p.ends_words;
 
-__global__ void __launch_bounds__(kThreads) cascaded_encode_kernel(EncodeParams p) {
-  extern __shared__ uint32_t smem[];
-  __shared__ int32_t scratch[2 * kWarps];
-  __shared__ int iscratch[kWarps];
-  const int e = p.elems, w = p.width, tid = threadIdx.x;
-  uint32_t* buf_a = smem;
-  uint32_t* buf_b = smem + e;
-  uint32_t* counts = smem + 2 * e;
+  // this team's partition, and its slot among the partition's teams
+  const int q = team / p.slots, s = team % p.slots;
+  const long long b = (long long)blockIdx.x * p.parts + q;
+  const bool mine = q < p.parts && b < p.batch;
+  const uint8_t* in = p.data + (mine ? b : 0) * p.row_bytes;
+  uint8_t* o = p.out + (mine ? b : 0) * p.pmax;
+  const long long length = mine ? p.lengths[b] : 0;
+  const long long n_elems = length > 0 ? length / w : 0;
+  const long long input_bytes = n_elems * w;
+  const long long limit = kPartitionHeader + round_up(input_bytes, 4);
+  const long long nchunks = min((long long)p.k, (n_elems + e - 1) / e);
+  bool fallback = p.nr == 0 && p.nd == 0 && !p.bp;
+  long long carry = kPartitionHeader;  // the running offset: 8 + the totals so far
 
-  const int b = blockIdx.x;
-  const uint8_t* in = p.data + (long long)b * p.row_bytes;
-  uint8_t* o = p.out + (long long)b * p.pmax;
-  const long long length = p.lengths[b];
-  if (length <= 0) {  // the row stays all zero
+  for (long long r = 0;; ++r) {
+    const long long c = r * p.slots + s;
+    const bool active = mine && !fallback && c < nchunks;
+    if (!__syncthreads_or(active)) break;
+    Staged st{0, 0, nullptr};
+    if (active) {
+      const int cn = (int)min((long long)e, n_elems - c * e);
+      if (kDirect)  // one team per partition: the chunk's place is known
+        st = encode_chunk<true>(p, in, c * e, cn, A, B, ends, reinterpret_cast<uint32_t*>(o + carry),
+                                (p.pmax - carry) >> 2);
+      else
+        st = encode_chunk<false>(p, in, c * e, cn, A, B, ends, stage, p.stage_words);
+    }
+    if (lane == 0) totals[team] = st.total;
+    __syncthreads();
+    if (!mine) continue;
+    long long before = 0, round = 0;
+    for (int j = 0; j < p.slots; ++j) {
+      const int t = totals[q * p.slots + j];
+      before += j < s ? t : 0;
+      round += t;
+    }
+    const long long off = carry + before;
+    carry += round;
+    fallback = fallback || carry > limit;
+    if (!kDirect && active && !fallback) {
+      const long long room = p.pmax - off, head = 4LL * st.head_words;
+      copy_bytes(o + off, reinterpret_cast<const uint8_t*>(stage), min(head, room), lane, 32);
+      copy_bytes(o + off + head, reinterpret_cast<const uint8_t*>(st.tail), min(st.total - head, room - head),
+                 lane, 32);
+    }
+  }
+
+  // the partition's teams write the rest of its row: header, raw copy or
+  // nothing, then zeros up to PMAX
+  if (!mine) return;
+  const int tid = s * 32 + lane, nth = p.slots * 32;
+  if (length <= 0) {  // an empty partition: a zero row of size 0
+    zero_bytes(o, p.pmax, tid, nth);
     if (tid == 0) p.sizes[b] = 0;
     return;
   }
-  const long long n_elems = length / w;
-  const long long input_bytes = n_elems * w;
-  const long long limit = kPartitionHeader + round_up(input_bytes, 4);
-  const uint32_t mask = unit_mask(w);
-  const bool aligned = ((uintptr_t)in % w) == 0;
-  const int dh_off = (int)round_up(4 + 4 * (p.nr + 1), w);
-  const int meta_size = dh_off + (int)round_up(w * p.nd, 4);
-
-  bool fallback = p.nr == 0 && p.nd == 0 && !p.bp;
-  long long off = kPartitionHeader;  // chunk offset: running sum of totals
-  const long long nchunks = min((long long)p.k, (n_elems + e - 1) / e);
-  for (long long c = 0; c < nchunks && !fallback; ++c) {
-    const int cn = (int)min((long long)e, n_elems - c * e);
-    for (int i = tid; i < cn; i += kThreads) buf_a[i] = load_elem(in, p.row_bytes, c * e + i, w, aligned);
-    __syncthreads();
-
-    uint32_t* cur = buf_a;
-    uint32_t* alt = buf_b;
-    int n = cn;
-    long long pos = meta_size;  // chunk-relative write position
-    uint32_t rle_size[8], firsts[8];
-    const int layers = max(p.nr, p.nd);
-    for (int layer = 0; layer < layers; ++layer) {
-      if (layer < p.nr) {
-        const int runs = rle_encode(cur, n, alt, counts, iscratch);
-        uint32_t frame = 0;
-        int bw = 0;
-        if (p.bp) for_bitwidth(counts, runs, 2, frame, bw, scratch);
-        const long long size = blob_size(p.bp, runs, bw, 2);
-        if (off + pos + round_up(size, 4) > limit) {
-          fallback = true;
-          break;
-        }
-        write_blob(reinterpret_cast<uint32_t*>(o + off + pos), (p.pmax - off - pos) / 4, counts,
-                   runs, 2, p.bp, frame, bw);
-        __syncthreads();  // the next RLE overwrites counts
-        rle_size[layer] = (uint32_t)size;
-        pos += round_up(size, 4);
-        uint32_t* t = cur; cur = alt; alt = t;
-        n = runs;
-      }
-      if (layer < p.nd) {
-        firsts[layer] = delta_encode(cur, n, alt, mask);
-        uint32_t* t = cur; cur = alt; alt = t;
-        n = max(n - 1, 0);
-      }
-    }
-    if (fallback) break;
-
-    const long long fpos = round_up(pos, w);
-    uint32_t frame = 0;
-    int bw = 0;
-    if (p.bp) for_bitwidth(cur, n, w, frame, bw, scratch);
-    const long long size = blob_size(p.bp, n, bw, w);
-    if (off + fpos + round_up(size, 4) > limit) {
-      fallback = true;
-      break;
-    }
-    write_blob(reinterpret_cast<uint32_t*>(o + off + fpos), (p.pmax - off - fpos) / 4, cur, n, w,
-               p.bp, frame, bw);
-    const long long total = round_up(fpos + round_up(size, 4), w);
-    if (tid == 0 && off + meta_size <= p.pmax) {
-      uint32_t* meta = reinterpret_cast<uint32_t*>(o + off);
-      meta[0] = (uint32_t)total;
-      for (int r = 0; r < p.nr; ++r) meta[1 + r] = rle_size[r];
-      meta[1 + p.nr] = (uint32_t)size;
-      for (int d = 0; d < p.nd; ++d)
-        for (int j = 0; j < w; ++j) o[off + dh_off + d * w + j] = (uint8_t)(firsts[d] >> (8 * j));
-    }
-    __syncthreads();  // the next chunk reloads buf_a
-    off += total;
-  }
-
-  if (fallback) {
-    // raw elements at byte 8; zero whatever the pipeline wrote past them
-    __syncthreads();
+  long long end = min(carry, p.pmax);
+  if (fallback) {  // raw elements at byte 8
     const long long ncopy = min(input_bytes, p.row_bytes);
-    copy_bytes(o + kPartitionHeader, in, ncopy);
-    const long long zero_end = min(limit, p.pmax);
-    for (long long i = kPartitionHeader + ncopy + tid; i < zero_end; i += kThreads) o[i] = 0;
-    off = kPartitionHeader + round_up(input_bytes, 4);
+    copy_bytes(o + kPartitionHeader, in, ncopy, tid, nth);
+    end = kPartitionHeader + ncopy;
+    carry = kPartitionHeader + round_up(input_bytes, 4);
   }
+  zero_bytes(o + end, p.pmax - end, tid, nth);
   if (tid == 0) {
     const uint32_t layers = fallback ? 0u : (uint32_t)p.nr | ((uint32_t)p.nd << 8) | ((uint32_t)p.bp << 16);
     reinterpret_cast<uint32_t*>(o)[0] = layers | ((uint32_t)p.dtype << 24);
     reinterpret_cast<uint32_t*>(o)[1] = (uint32_t)input_bytes;
-    p.sizes[b] = (int32_t)off;
+    p.sizes[b] = (int32_t)carry;
   }
 }
 
@@ -272,13 +427,35 @@ extern "C" int tc_cascaded_encode(const void* data, const void* lengths, void* o
                                   long long batch, long long row_bytes, long long pmax, int width,
                                   int dtype, int elems, int k, int nr, int nd, int bp, void* stream) {
   using namespace tpucomp;
+  // a team's workspace: two element arrays, the u16 run ends, the staging
+  // area (metadata, nr count blobs at their largest, the final blob's
+  // header); 14,384 bytes at the default options, so eight teams fit twice
+  // on an SM
+  const long long arr_words = round_up(elems, 4);
+  const long long ends_words = round_up(elems, 8) / 2;
+  const long long meta = 4 + 4 * (nr + 1) + round_up((long long)width * nd, 4);
+  const long long counts_max = (bp ? 8 : 0) + round_up(2LL * elems, 4);
+  long long stage_words = round_up(meta + nr * counts_max + (bp ? 8 : 0), 16) / 4;
+  const long long arrays = 4 * (2 * arr_words + ends_words);
+  const bool direct = arrays + 4 * stage_words > kSmemMax;
+  if (direct) stage_words = 0;
+  const TeamPlan plan = direct ? TeamPlan{1, 1, 1, arrays} : plan_teams(arrays + 4 * stage_words, k);
   EncodeParams p{static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
-                 static_cast<uint8_t*>(out), static_cast<int32_t*>(sizes), row_bytes, pmax,
-                 width, dtype, elems, k, nr, nd, bp};
-  const size_t smem = 3 * sizeof(uint32_t) * (size_t)elems;
-  cudaError_t err = cudaFuncSetAttribute(cascaded_encode_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cascaded_encode_kernel<<<(unsigned)batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+                 static_cast<uint8_t*>(out), static_cast<int32_t*>(sizes), batch, row_bytes, pmax,
+                 width, dtype, elems, k, nr, nd, bp, plan.slots, plan.parts, (int)arr_words,
+                 (int)ends_words, (int)stage_words};
+  const size_t smem = (size_t)(plan.teams * plan.ws_bytes);
+  const unsigned grid = (unsigned)((batch + plan.parts - 1) / plan.parts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (direct) {
+    err = cudaFuncSetAttribute(cascaded_encode_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cascaded_encode_kernel<true><<<grid, 32 * plan.teams, smem, st>>>(p);
+  } else {
+    err = cudaFuncSetAttribute(cascaded_encode_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cascaded_encode_kernel<false><<<grid, 32 * plan.teams, smem, st>>>(p);
+  }
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,10 @@ decode             ``csrc/cascaded_decode.cu``     ``tpucomp/kernels/cascaded_pa
 The wrappers take CUDA tensors only and launch on PyTorch's current
 stream; they raise on anything the kernels do not take (a CPU tensor goes
 to the plain version through ``codecs.cascaded.compress`` /
-``decompress``, never through here).  Outputs are allocated with
-``torch.zeros``, so bytes the kernels do not write are zero, as in the
-plain version.  ``LAUNCHES`` counts the launches of each kernel.
+``decompress``, never through here).  Both kernels write every byte of
+their outputs (rows up to PMAX or ``out_capacity``, zeros past the data,
+and every size and status), so outputs are allocated with ``torch.empty``.
+``LAUNCHES`` counts the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ def _check(opts: CascadedOpts, *tensors: torch.Tensor) -> None:
     if width_of(opts.type) == 8:
         raise NotImplementedError(
             "the CUDA cascaded kernels do not support 8-byte element types yet "
-            "(ROADMAP.md, Queue 2: w=8 kernel support); the plain version "
-            "handles them on CPU tensors"
+            "(ROADMAP.md, Queue 2: w=8 kernel support); codecs.cascaded.compress "
+            "and decompress send them to the plain version on any device"
         )
 
 
@@ -63,8 +64,8 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: CascadedOpts):
     lengths = lengths.to(torch.int32).contiguous()
     b, c = data.shape
     pmax = cc.partition_output_max(c, opts)
-    out = torch.zeros(b, pmax, dtype=torch.uint8, device=data.device)
-    sizes = torch.zeros(b, dtype=torch.int32, device=data.device)
+    out = torch.empty(b, pmax, dtype=torch.uint8, device=data.device)
+    sizes = torch.empty(b, dtype=torch.int32, device=data.device)
     if b == 0:
         return out, sizes
     with torch.cuda.device(data.device):
@@ -92,9 +93,9 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: CascadedOpts,
     comp = comp.contiguous()
     comp_sizes = comp_sizes.to(torch.int32).contiguous()
     b, cmax = comp.shape
-    out = torch.zeros(b, out_capacity, dtype=torch.uint8, device=comp.device)
-    out_bytes = torch.zeros(b, dtype=torch.int32, device=comp.device)
-    status = torch.zeros(b, dtype=torch.int32, device=comp.device)
+    out = torch.empty(b, out_capacity, dtype=torch.uint8, device=comp.device)
+    out_bytes = torch.empty(b, dtype=torch.int32, device=comp.device)
+    status = torch.empty(b, dtype=torch.int32, device=comp.device)
     if b == 0:
         return out, out_bytes, status
     with torch.cuda.device(comp.device):

@@ -1,0 +1,49 @@
+"""The port's measurement corpora: the mixed corpus and the run-heavy columns.
+
+``chip_smoke.py`` and the A/B scripts under ``scripts/`` time the kernels
+on these.  Both return the same bytes as the JAX package's bench loaders
+of the same names (``bench.py``), with one difference: a missing
+``corpus/mixed_v1.bin.gz`` raises instead of giving way to a synthetic
+corpus, so a timing can never be taken on other data than it names.
+"""
+
+from __future__ import annotations
+
+import gzip
+from pathlib import Path
+
+import numpy as np
+
+MIXED = Path(__file__).resolve().parents[2] / "corpus" / "mixed_v1.bin.gz"
+
+
+def load_corpus(total_bytes: int, seed: int = 0) -> bytes:
+    """``corpus/mixed_v1.bin.gz`` (a committed Silesia-profile mix of text,
+    source, an ELF binary, structured records, redundant database text and
+    near-random bytes, built by ``scripts/build_corpus.py``), rotated by a
+    seed-dependent offset when ``seed`` is not 0, repeated to
+    ``total_bytes``."""
+    if not MIXED.exists():
+        raise FileNotFoundError(f"the mixed corpus {MIXED} is missing")
+    with gzip.open(MIXED, "rb") as f:
+        blob = f.read()
+    if seed:
+        k = (seed * 1009001) % len(blob)
+        blob = blob[k:] + blob[:k]
+    reps = -(-total_bytes // len(blob))
+    return (blob * reps)[:total_bytes]
+
+
+def runheavy_corpus(total_bytes: int, seed: int = 2) -> bytes:
+    """Deterministic run-heavy int32 columns: runs of 4 to 47 equal values
+    that drift by -3..3 from run to run, where the Cascaded pipeline
+    compresses every chunk."""
+    rng = np.random.default_rng(seed)
+    n = total_bytes // 4
+    n_runs = n // 16 + 2
+    runlens = rng.integers(4, 48, size=n_runs)
+    vals = np.cumsum(rng.integers(-3, 4, size=n_runs)).astype(np.int32) + 1000
+    col = np.repeat(vals, runlens)[:n].astype(np.int32)
+    if col.size < n:
+        col = np.pad(col, (0, n - col.size), mode="edge")
+    return col.tobytes()[:total_bytes]
