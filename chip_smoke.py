@@ -18,11 +18,13 @@ multihost, the CLI, native staging), in phases, each printing one line
    streams, through both the kernels and their plain PyTorch versions; exact equality (tolerance 0: the codec is
    lossless and every output is an integer tensor).  A few default-option
    partitions are also checked against tests/oracles/cascaded_oracle.py.
-   Then CascadedManager's shape (256 partitions of 4 KB, one chunk each)
-   the same way, and the 8-byte route: a LONGLONG batch on the card
-   round-trips through codecs.cascaded on the plain version, equal to the
-   CPU's, with no Cascaded kernel launched, while the kernel wrapper
-   raises NotImplementedError
+   The cases include 8-byte elements (LONGLONG / ULONGLONG: the matrix's,
+   the wide rows', the random ones' and tests/torch_cases.py::w8_cases,
+   ranges that wrap, values past 2**32 and 2**63, ragged lengths).
+   Then CascadedManager's shape (256 partitions of 4 KB, one chunk each;
+   INT, SHORT and LONGLONG) the same way, and the 8-byte route: a LONGLONG
+   and a ULONGLONG batch through codecs.cascaded launch each kernel once
+   and equal the plain version on the CPU
 4. Cascaded main path: 256 MB of the mixed corpus and of the run-heavy corpus
    (tpucomp_torch/utils/corpus.py), as
    uint8[4096, 65536], through tpucomp_torch.cascaded_codec.compress /
@@ -73,7 +75,8 @@ multihost, the CLI, native staging), in phases, each printing one line
    element
 13. high-level managers: the 256 MB mixed corpus as one buffer through
    LZ4Manager, SnappyManager and CascadedManager at their default chunk
-   sizes, create_manager on each artifact, exact round trips, the
+   sizes, and CascadedManager(opts=LONGLONG), create_manager on each
+   artifact, exact round trips, the
    codec's kernels launched; compress and decompress wall times (host
    clock, one call; and CUDA-event medians of several calls), with the
    artifact assembly and the stream slicing timed alone
@@ -105,6 +108,16 @@ multihost, the CLI, native staging), in phases, each printing one line
    ragged staging held to numpy at 256 MB; pack_chunks / unpack_chunks
    (a numpy copy per row) timed against the same work staged through the
    library; host-clock times
+19. Cascaded 8-byte main path and times (run right after phase 5, beside
+   the 4-byte times): 256 MB as uint8[4096, 65536] through
+   tpucomp_torch.cascaded_codec under LONGLONG on the runheavy64 and
+   timestamps64 corpora (tpucomp_torch/utils/corpus.py) and on mixed, and
+   under ULONGLONG on timestamps64; exact round trips, all SUCCESS, both
+   kernels launched once a cell and no other (counts reset just before);
+   CUDA-event medians of 7 after 2 warm-ups of the kernels, the plain
+   versions timed once, the kernels held to them on each whole batch;
+   each cell's byte bounds (the kernels line's 8-byte rows read
+   timestamps64 under LONGLONG)
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -172,19 +185,22 @@ def phase_matrix(dev):
     from oracles.cascaded_oracle import cascaded_compress_oracle
     from tpucomp_torch.codecs import cascaded as cc
     from tpucomp_torch.core.options import opts_from_fields
+    from tpucomp_torch.core.types import width_of
     from tpucomp_torch.kernels import cascaded_cuda as kc
 
     err = {"encode": 0, "decode": 0}
     n_cases = 0
+    n_w8 = 0  # of them, comparisons of 8-byte elements
 
     def decode_both(label, comp, sizes, o, cap):
-        nonlocal n_cases
+        nonlocal n_cases, n_w8
         got = kc.decompress(comp, sizes, o, cap)
         want = cc._decompress_plain(comp, sizes, o, cap)
         torch.cuda.synchronize()
         for part, g, w in zip(("data", "bytes", "status"), got, want):
             err["decode"] = max(err["decode"], _equal(f"{label} decode {part}", g, w))
         n_cases += 1
+        n_w8 += width_of(o.type) == 8
         return got
 
     rng = np.random.default_rng(0)
@@ -200,6 +216,7 @@ def phase_matrix(dev):
         err["encode"] = max(err["encode"], _equal(f"{label} encode rows", comp, want[0]),
                             _equal(f"{label} encode sizes", sizes, want[1]))
         n_cases += 1
+        n_w8 += w == 8
         cap = arr.shape[1] - arr.shape[1] % w
         data, nbytes, status = decode_both(label, comp, sizes, o, cap)
         for i, n in enumerate(lens):  # an empty partition compresses to 0 bytes
@@ -231,7 +248,8 @@ def phase_matrix(dev):
     raw = b"".join(torch_cases.profile_bytes(rng, prof, 4096 * 64, 4) for prof in ("runs", "random", "ramp", "signed"))
     arr, lens = torch_cases.batch(raw, 256, 4096)
     lens[-1] -= 1001
-    cases_4k = [("4 KB partitions", fields) for fields in (torch_cases.DEFAULT, torch_cases.opts(type=torch_cases.SHORT))]
+    cases_4k = [("4 KB partitions", fields) for fields in (torch_cases.DEFAULT, torch_cases.opts(type=torch_cases.SHORT),
+                                                            torch_cases.opts(type=torch_cases.LONGLONG))]
     for label, fields in cases_4k:
         o = opts_from_fields(fields)
         d, ln = torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev)
@@ -241,36 +259,35 @@ def phase_matrix(dev):
         err["encode"] = max(err["encode"], _equal(f"{label} encode rows", comp, want[0]),
                             _equal(f"{label} encode sizes", sizes, want[1]))
         n_cases += 1
+        n_w8 += width_of(o.type) == 8
         decode_both(label, comp, sizes, o, 4096)
         rows, szs = torch_cases.damage(rng, comp.cpu().numpy(), sizes.cpu().numpy())
         decode_both(f"{label} damaged", torch.from_numpy(rows).to(dev), torch.from_numpy(szs).to(dev), o, 4096)
 
-    # 8-byte elements: the codec takes the plain version on the card, the kernel wrapper refuses them
-    o8 = opts_from_fields(torch_cases.opts(type=torch_cases.LONGLONG))
-    arr8, lens8 = torch_cases.config_case(rng, torch_cases.opts(type=torch_cases.LONGLONG), 4096, "runs")
-    d8, ln8 = torch.from_numpy(arr8).to(dev), torch.from_numpy(lens8).to(dev)
-    before = dict(kc.LAUNCHES)
-    comp8, sizes8 = cc.compress(d8, ln8, o8)
-    out8 = cc.decompress(comp8, sizes8, o8, arr8.shape[1])
-    torch.cuda.synchronize()
-    if kc.LAUNCHES != before or not comp8.is_cuda:
-        raise AssertionError(f"an 8-byte batch launched a Cascaded kernel: {kc.LAUNCHES} (before {before})")
-    want8 = cc._compress_plain(torch.from_numpy(arr8), torch.from_numpy(lens8), o8)
-    for part, g, w in zip(("rows", "sizes"), (comp8, sizes8), want8):
-        _equal(f"8-byte route encode {part}", g.cpu(), w)
-    for part, g, w in zip(("data", "bytes", "status"), out8, cc._decompress_plain(*want8, o8, arr8.shape[1])):
-        _equal(f"8-byte route decode {part}", g.cpu(), w)
-    kept = ln8 // 8 * 8  # lengths count whole elements
-    if bool(out8[2].any()) or not torch.equal(out8[0], d8 * (torch.arange(arr8.shape[1], device=dev) < kept[:, None])):
-        raise AssertionError("the 8-byte route does not round-trip")
-    try:
-        kc.compress(torch.zeros(1, 64, dtype=torch.uint8, device=dev),
-                    torch.zeros(1, dtype=torch.int32, device=dev), o8)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("8-byte elements must raise NotImplementedError in the kernel wrapper")
-    return err, n_cases, len(cases) + 1 + len(cases_4k)
+    # 8-byte elements through the codec's route on the card: each call
+    # launches its kernel once, equal to the plain version on the CPU
+    for type_ in (torch_cases.LONGLONG, torch_cases.ULONGLONG):
+        o8 = opts_from_fields(torch_cases.opts(type=type_))
+        arr8, lens8 = torch_cases.config_case(rng, torch_cases.opts(type=type_), 4096, "runs")
+        d8, ln8 = torch.from_numpy(arr8).to(dev), torch.from_numpy(lens8).to(dev)
+        before = dict(kc.LAUNCHES)
+        comp8, sizes8 = cc.compress(d8, ln8, o8)
+        out8 = cc.decompress(comp8, sizes8, o8, arr8.shape[1])
+        torch.cuda.synchronize()
+        if kc.LAUNCHES != {k: n + 1 for k, n in before.items()} or not comp8.is_cuda:
+            raise AssertionError(f"an 8-byte batch did not launch each Cascaded kernel once: {kc.LAUNCHES} "
+                                 f"(before {before})")
+        want8 = cc._compress_plain(torch.from_numpy(arr8), torch.from_numpy(lens8), o8)
+        for part, g, w in zip(("rows", "sizes"), (comp8, sizes8), want8):
+            err["encode"] = max(err["encode"], _equal(f"8-byte route encode {part}", g.cpu(), w))
+        for part, g, w in zip(("data", "bytes", "status"), out8, cc._decompress_plain(*want8, o8, arr8.shape[1])):
+            err["decode"] = max(err["decode"], _equal(f"8-byte route decode {part}", g.cpu(), w))
+        n_cases += 2
+        n_w8 += 2
+        kept = ln8 // 8 * 8  # lengths count whole elements
+        if bool(out8[2].any()) or not torch.equal(out8[0], d8 * (torch.arange(arr8.shape[1], device=dev) < kept[:, None])):
+            raise AssertionError("the 8-byte route does not round-trip")
+    return err, n_cases, n_w8, len(cases) + 1 + len(cases_4k) + 2
 
 
 def phase_main_path(dev, corpora):
@@ -343,6 +360,86 @@ def phase_times(dev, corpora):
         del comp, sizes, dst
         torch.cuda.empty_cache()
     return times, err
+
+
+def phase_w8(dev, corpora, counters, paths):
+    """8-byte elements at full size: LONGLONG on runheavy64, timestamps64
+    and mixed, ULONGLONG on timestamps64, each as uint8[4096, 65536]
+    through tpucomp_torch.cascaded_codec (launch counts reset just before,
+    read just after: both Cascaded kernels once a cell, nothing else),
+    exact round trips, all SUCCESS; then CUDA-event medians of the kernels
+    and the plain versions timed once, the kernels held to them on the
+    whole batch.  Returns (launches, times by cell, max abs err)."""
+    import numpy as np
+    import torch
+
+    import tpucomp_torch
+    from tpucomp_torch.codecs import cascaded as cc
+    from tpucomp_torch.core.options import CascadedOpts
+    from tpucomp_torch.core.types import DataType
+    from tpucomp_torch.kernels import cascaded_cuda as kc
+    from tpucomp_torch.utils.corpus import runheavy64_corpus, timestamps64_corpus
+    from tpucomp_torch.utils.profiling import wall
+
+    data = dict(corpora)
+    for name, gen in (("runheavy64", runheavy64_corpus), ("timestamps64", timestamps64_corpus)):
+        data[name] = torch.from_numpy(np.frombuffer(gen(B * C), np.uint8).reshape(B, C).copy()).to(dev)
+    cells = [("runheavy64", DataType.LONGLONG), ("timestamps64", DataType.LONGLONG), ("mixed", DataType.LONGLONG),
+             ("timestamps64", DataType.ULONGLONG)]
+    lengths = torch.full((B,), C, dtype=torch.int32, device=dev)
+    nbytes = B * C
+
+    _reset_counts(counters)
+    for name, type_ in cells:
+        batch = tpucomp_torch.ChunkBatch(data[name], lengths)
+        comp = tpucomp_torch.cascaded_codec.compress(batch, CascadedOpts(type=type_))
+        out, status = tpucomp_torch.cascaded_codec.decompress(comp, C, CascadedOpts(type=type_))
+        torch.cuda.synchronize()
+        if not (torch.equal(out.data, data[name]) and bool((out.lengths == C).all()) and bool((status == 0).all())):
+            raise AssertionError(f"{name} {type_.name}: 256 MB round trip is not exact")
+        del batch, comp, out, status
+    launches = dict(counters["cascaded"])
+    if any(n != len(cells) for n in launches.values()) or any(
+            any(c.values()) for k, c in counters.items() if k not in paths["cascaded"]):
+        raise AssertionError(f"the 8-byte main path launched {counters}")
+
+    times, err = {}, {"encode": 0, "decode": 0}
+    for name, type_ in cells:
+        o = CascadedOpts(type=type_)
+        d = data[name]
+        comp, sizes = kc.compress(d, lengths, o)
+        t = {}
+        t["plain_encode"] = wall(cc._compress_plain, d, lengths, o, iters=1, warmup=0, bytes_processed=nbytes)
+        t["kernel_encode"] = wall(kc.compress, d, lengths, o, iters=ITERS, warmup=WARMUP, bytes_processed=nbytes)
+        t["kernel_decode"] = wall(kc.decompress, comp, sizes, o, C, iters=ITERS, warmup=WARMUP,
+                                  bytes_processed=nbytes)
+        t["plain_decode"] = wall(cc._decompress_plain, comp, sizes, o, C, iters=1, warmup=0,
+                                 bytes_processed=nbytes)
+        label = f"{name} {type_.name}"
+        pc, ps = cc._compress_plain(d, lengths, o)
+        err["encode"] = max(err["encode"], _equal(f"{label} encode rows", comp, pc),
+                            _equal(f"{label} encode sizes", sizes, ps))
+        del pc, ps
+        for part, g, w in zip(("data", "bytes", "status"), kc.decompress(comp, sizes, o, C),
+                              cc._decompress_plain(comp, sizes, o, C)):
+            err["decode"] = max(err["decode"], _equal(f"{label} decode {part}", g, w))
+        cell = f"{name}_{type_.name.lower()}"
+        times[cell] = {k: v.summary() for k, v in t.items()}
+        comp_bytes = int(sizes.to(torch.int64).sum())
+        times[cell]["comp_bytes"] = comp_bytes
+        # the byte bounds of the kernels line, and each kernel's multiple of its own
+        bounds = {"encode": bound_ms(nbytes + comp_bytes + 8 * B), "decode": bound_ms(comp_bytes + nbytes + 12 * B)}
+        fallback = float(((comp[:, :3] == 0).all(1)).float().mean())
+        line = ", ".join(f"{k} {v.gbps:.3f} GB/s (median {v.median_ms:.3f} ms, min {v.min_ms:.3f}, "
+                         f"max {v.max_ms:.3f})" for k, v in t.items())
+        line += "; " + ", ".join(f"{k} bound {b:.4f} ms ({t['kernel_' + k].median_ms / b:.2f}x)"
+                                 for k, b in bounds.items())
+        print(f"phase 19 8-byte {label} 256 MB [4096 x 64 KB]: exact round trip, all SUCCESS, ratio "
+              f"{nbytes / comp_bytes:.4f}, fallback share {fallback:.4f}; {line} "
+              f"(plain versions timed once)", flush=True)
+        del comp, sizes
+        torch.cuda.empty_cache()
+    return launches, times, err
 
 
 def _lz4_decode_both(err, comp, sizes, cap, label):
@@ -865,7 +962,8 @@ def _peak_compress(compress, data, lengths):
 
 def phase_hlif(corpora, counters, paths):
     """The 256 MB mixed corpus as one buffer through each manager at its
-    default chunk size: create_manager on the artifact, exact round trip,
+    default chunk size, and through CascadedManager(opts=LONGLONG):
+    create_manager on the artifact, exact round trip,
     the codec's kernels launched (the counters of ``paths[codec]``) and no
     other; compress and decompress times on the host clock (one call) and
     by CUDA events (medians of several), and the assembly and slicing
@@ -873,6 +971,8 @@ def phase_hlif(corpora, counters, paths):
     import torch
 
     import tpucomp_torch
+    from tpucomp_torch.core.options import CascadedOpts
+    from tpucomp_torch.core.types import DataType
     from tpucomp_torch.highlevel import headers as hdr
     from tpucomp_torch.highlevel import manager as tm
     from tpucomp_torch.utils.profiling import wall
@@ -880,12 +980,13 @@ def phase_hlif(corpora, counters, paths):
     data = corpora["mixed"].reshape(-1)
     n = data.numel()
     out_lines = {}
-    for name, cls in (("lz4", tpucomp_torch.LZ4Manager), ("snappy", tpucomp_torch.SnappyManager),
-                      ("cascaded", tpucomp_torch.CascadedManager)):
-        mgr = cls()
-        for counts in counters.values():
-            for k in counts:
-                counts[k] = 0
+    for name, codec, cls, kwargs in (
+            ("lz4", "lz4", tpucomp_torch.LZ4Manager, {}), ("snappy", "snappy", tpucomp_torch.SnappyManager, {}),
+            ("cascaded", "cascaded", tpucomp_torch.CascadedManager, {}),
+            ("cascaded_longlong", "cascaded", tpucomp_torch.CascadedManager,
+             {"opts": CascadedOpts(type=DataType.LONGLONG)})):
+        mgr = cls(**kwargs)
+        _reset_counts(counters)
         walls = {}
         for stage in ("compress", "decompress"):
             torch.cuda.synchronize()
@@ -901,9 +1002,9 @@ def phase_hlif(corpora, counters, paths):
             raise AssertionError(f"HLIF {name}: create_manager gave {type(mgr2).__name__}")
         if not torch.equal(out, data) or bool(statuses.any()):
             raise AssertionError(f"HLIF {name}: 256 MB round trip is not exact")
-        launched = {k: n for c in paths[name] for k, n in counters[c].items()}
+        launched = {k: n for c in paths[codec] for k, n in counters[c].items()}
         if not all(launched.values()) or any(
-                any(c.values()) for k, c in counters.items() if k not in paths[name]):
+                any(c.values()) for k, c in counters.items() if k not in paths[codec]):
             raise AssertionError(f"HLIF {name}: launches {counters}")
         # the assembly and the slicing alone, at the manager's shapes
         cs = mgr.uncomp_chunk_size
@@ -1393,10 +1494,10 @@ def main() -> int:
         }
 
     t0 = time.perf_counter()
-    matrix_err, n_cases, n_inputs = phase_matrix(dev)
+    matrix_err, n_cases, n_w8, n_inputs = phase_matrix(dev)
     print(f"phase 3 kernel vs plain: {n_cases} comparisons on {n_inputs} inputs equal "
-          f"(tolerance 0), oracle agrees; the 8-byte route round-trips on the plain version with no "
-          f"kernel launched ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"(tolerance 0), {n_w8} of them of 8-byte elements, oracle agrees; LONGLONG and ULONGLONG "
+          f"batches through codecs.cascaded launch the kernels ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     corpora = make_corpora()
 
@@ -1418,6 +1519,7 @@ def main() -> int:
         raise AssertionError(f"the Cascaded main path launched {counters}")
 
     times, main_err = phase_times(dev, corpora)
+    launches["cascaded_w8"], w8_times, w8_err = phase_w8(dev, corpora, counters, paths)
 
     t0 = time.perf_counter()
     lz4_err, n_lz4, n_lz4_inputs = phase_lz4_matrix(dev)
@@ -1457,6 +1559,9 @@ def main() -> int:
 
     kernels = []
     mixed, lz4_mixed, snappy_mixed = times["mixed"], lz4_times["mixed"], snappy_times["mixed"]
+    # 8-byte rows on a real 64-bit column, the cell with the most Cascaded work
+    # (no fallback, every chunk bit-packed); phase 19 prints every cell's bound
+    w8 = w8_times["timestamps64_longlong"]
     # bounds: each input read once, each output written once.  LZ encode:
     # the chunk, a table entry (2 bytes) per literal byte and per
     # sequence, the stream; the table: the chunk and 2 bytes per position
@@ -1466,6 +1571,14 @@ def main() -> int:
          mixed, "encode", max(matrix_err["encode"], main_err["encode"]), B * C + mixed["comp_bytes"] + 8 * B),
         ("cascaded_decode", "cascaded_decode.cu", "tpucomp/kernels/cascaded_pallas.py:874", launches["cascaded"]["decode"],
          mixed, "decode", max(matrix_err["decode"], main_err["decode"]), mixed["comp_bytes"] + B * C + 12 * B),
+        # 8-byte elements: the same sources' 64-bit instantiations, in place
+        # of tpucomp's XLA path (its Pallas kernels take widths 1, 2 and 4)
+        ("cascaded_encode_w8", "cascaded_encode.cu", "tpucomp/codecs/cascaded.py:546",
+         launches["cascaded_w8"]["encode"], w8, "encode", max(matrix_err["encode"], w8_err["encode"]),
+         B * C + w8["comp_bytes"] + 8 * B),
+        ("cascaded_decode_w8", "cascaded_decode.cu", "tpucomp/codecs/cascaded.py:714",
+         launches["cascaded_w8"]["decode"], w8, "decode", max(matrix_err["decode"], w8_err["decode"]),
+         w8["comp_bytes"] + B * C + 12 * B),
         ("lz_match_table", "lz_match_table.cu", "tpucomp/codecs/lz77.py:43",
          launches["lz4"]["table"] + launches["snappy"]["table"], lz4_mixed, "table",
          max(lz4_err["table"], lz4_main_err["table"], snappy_err["table"], snappy_main_err["table"]), 3 * B * C + 4 * B),
@@ -1495,6 +1608,7 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         })
+    print(f"  8-byte cells: {json.dumps(w8_times)}", flush=True)
     print(f"  HLIF: {json.dumps(hlif)}", flush=True)
     print(f"  scaling: {json.dumps(scaling)}", flush=True)
     print(f"  host surface: {json.dumps(host)}", flush=True)

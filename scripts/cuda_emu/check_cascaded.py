@@ -18,10 +18,12 @@ pre-filled with a marker byte (every byte must be written), and holds
 rows, sizes, data, byte counts and statuses to ``_compress_plain`` /
 ``_decompress_plain`` with tolerance 0: the kernel cases of
 tests/torch_cases.py that stay small (the test matrix, the rest of the
-option space and N random option sets and shapes; not the two 16 MB
-partitions), each decoded as written, with mismatched options, into an
-undersized output and damaged; the corrupt streams; and batches of 4 KB
-partitions (CascadedManager's default shape).  The emulation checks logic
+option space, N random option sets and shapes, and the 8-byte profiles
+of ``w8_cases``; not the two 16 MB partitions), each decoded as written,
+with mismatched options, into an undersized output and damaged; the
+corrupt streams; and batches of 4 KB partitions (CascadedManager's
+default shape, INT and LONGLONG).  Every element width, 8 included, goes
+through all three builds.  The emulation checks logic
 only (no timing, memory model or nvcc); the ``cuda`` tests on the card stay
 the judge.  Prints one line per group and every mismatch; exits 1 on any.
 """
@@ -46,7 +48,7 @@ from tpucomp_torch.core.options import opts_from_fields  # noqa: E402
 from tpucomp_torch.core.types import width_of  # noqa: E402
 
 P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*)>>>\(")
+LAUNCH = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<(.*)>>>\(")
 DYNAMIC = re.compile(r"extern __shared__ __align__\(16\) uint32_t (\w+)\[\];")
 MARK = 0xAB  # bytes the kernels must all overwrite
 
@@ -98,12 +100,13 @@ def decode(lib, comp, sizes, o, cap):
 
 def manager_cases(rng):
     """Batches of 4 KB partitions, one chunk each at the default options
-    (CascadedManager's shape): run-heavy, random and mixed rows, the last
-    ragged."""
+    and at LONGLONG's (CascadedManager's shape): run-heavy, random and
+    mixed rows, the last ragged."""
     raw = b"".join(torch_cases.profile_bytes(rng, p, 4096 * 8, 4) for p in ("runs", "random", "ramp"))
     arr, lens = torch_cases.batch(raw, 24, 4096)
     lens[-1] -= 1001
-    return [("4 KB partitions", torch_cases.DEFAULT, arr, lens)]
+    return [("4 KB partitions", torch_cases.DEFAULT, arr, lens),
+            ("4 KB partitions LONGLONG", torch_cases.opts(type=torch_cases.LONGLONG), arr, lens)]
 
 
 def main():
@@ -140,8 +143,9 @@ def check(args, defines) -> int:
             same(f"{label} decode", decode(lib, comp, sizes, o, cap), cc._decompress_plain(comp, sizes, o, cap))
 
         rng = np.random.default_rng(0)
-        groups = [("matrix", torch_cases.compress_cases(with_w8=False)), ("wide", torch_cases.wide_cases()),
-                  ("fuzz", torch_cases.fuzz_cases(0, args.fuzz)), ("manager", manager_cases(rng))]
+        groups = [("matrix", torch_cases.compress_cases()), ("wide", torch_cases.wide_cases()),
+                  ("fuzz", torch_cases.fuzz_cases(0, args.fuzz)), ("w8", torch_cases.w8_cases()),
+                  ("manager", manager_cases(rng))]
         for group, cases in groups:
             n0 = bad
             for label, fields, arr, lens in cases:

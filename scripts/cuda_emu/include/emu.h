@@ -58,6 +58,7 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline int __ffsll(unsigned long long x) { return x ? __builtin_ctzll(x) + 1 : 0; }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+inline int __clzll(long long x) { return x ? __builtin_clzll((unsigned long long)x) : 64; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline float __frcp_rn(float x) { return 1.0f / x; }
 

@@ -118,8 +118,8 @@ def test_true_raises_on_a_cpu_batch(flag, rng, name):
 
 
 def test_true_raises_on_a_cpu_batch_of_8_byte_elements(flag, rng):
-    """8-byte Cascaded types take the plain version whatever the flag says,
-    but a forced kernel route still refuses a CPU batch."""
+    """8-byte Cascaded types follow the flag as every other type does: a
+    forced kernel route refuses a CPU batch."""
     opts = CascadedOpts(type=DataType.LONGLONG)
     batch = tpucomp_torch.pack_chunks(_chunks(rng), capacity=CAP, device="cpu")
     config.use_cuda_kernels = True

@@ -202,6 +202,26 @@ def test_corpus_loaders_equal_the_bench(name):
         assert getattr(corpus, name)(total, seed) == getattr(bench, name)(total, seed)
 
 
+def test_64_bit_corpora_are_the_columns_they_name():
+    """runheavy64: the run-heavy runs (4 to 47 equal values, drift of
+    -3..3 a run) as int64 at 1.7e15 + 1000 * drift; timestamps64: strictly
+    increasing int64 steps of 900 to 1100 from the same base.  Both seeded,
+    cut to the byte count asked for."""
+    from tpucomp_torch.utils import corpus
+
+    rh = np.frombuffer(corpus.runheavy64_corpus(1 << 20), np.int64)
+    assert corpus.runheavy64_corpus(1 << 20) == rh.tobytes() and rh.size == 1 << 17
+    starts = np.flatnonzero(np.diff(rh)) + 1
+    assert np.diff(starts).min() >= 4  # runs of a drift of 0 join their neighbours
+    assert np.abs(np.diff(rh[starts])).max() <= 3000 and ((rh - corpus.BASE64) % 1000 == 0).all()
+    assert (rh >> 32).min() > 0 and abs(int(rh[0]) - corpus.BASE64) <= 3000
+    ts = np.frombuffer(corpus.timestamps64_corpus(1 << 20), np.int64)
+    steps = np.diff(ts)
+    assert steps.min() >= 900 and steps.max() <= 1100 and ts[0] - corpus.BASE64 in range(900, 1101)
+    assert len(corpus.timestamps64_corpus(1001)) == 1001
+    assert corpus.timestamps64_corpus(4096, seed=4) != corpus.timestamps64_corpus(4096)
+
+
 def test_corpus_loader_raises_without_the_mixed_corpus(monkeypatch, tmp_path):
     """A missing corpus raises; it is never replaced by other data."""
     from tpucomp_torch.utils import corpus

@@ -68,6 +68,10 @@ def test_kernel_decode_corrupt_streams_equal_plain(cuda):
 
 @pytest.mark.cuda
 def test_launch_counters_move_and_w8_raises(cuda):
+    """Each codec call on the card launches its kernel once, 8-byte
+    elements included (the kernels equal the plain version); the wrapper
+    raises on what a w = 8 launch cannot take: an output capacity that is
+    not a multiple of 8."""
     o = CascadedOpts()
     before = dict(kc.LAUNCHES)
     data = torch.arange(4096, dtype=torch.int32, device=cuda).view(torch.uint8).view(4, 4096)
@@ -76,35 +80,32 @@ def test_launch_counters_move_and_w8_raises(cuda):
     out, nbytes, status = cc.decompress(comp, sizes, o, 4096)
     assert kc.LAUNCHES == {"encode": before["encode"] + 1, "decode": before["decode"] + 1}
     assert torch.equal(out, data) and bool((status == 0).all())
-    # 8-byte elements: the codec takes the plain version on the card (the
-    # kernels do not take them), equal to the CPU's, and launches nothing;
-    # the kernel wrapper itself still refuses them
-    o8 = CascadedOpts(type=DataType.LONGLONG)
-    before = dict(kc.LAUNCHES)
-    comp, sizes = cc.compress(data, lengths, o8)
-    got = cc.decompress(comp, sizes, o8, 4096)
-    assert comp.is_cuda and kc.LAUNCHES == before
-    want = cc._compress_plain(data.cpu(), lengths.cpu(), o8)
-    _equal((comp.cpu(), sizes.cpu()), want)
-    _equal([t.cpu() for t in got], cc._decompress_plain(*want, o8, 4096))
-    assert torch.equal(got[0], data) and bool((got[2] == 0).all())
-    with pytest.raises(NotImplementedError):
-        kc.compress(data, lengths, o8)
-    with pytest.raises(NotImplementedError):
-        kc.decompress(comp, sizes, o8, 4096)
+    for type_ in (DataType.LONGLONG, DataType.ULONGLONG):
+        o8 = CascadedOpts(type=type_)
+        before = dict(kc.LAUNCHES)
+        comp, sizes = cc.compress(data, lengths, o8)
+        got = cc.decompress(comp, sizes, o8, 4096)
+        assert comp.is_cuda and kc.LAUNCHES == {"encode": before["encode"] + 1, "decode": before["decode"] + 1}
+        want = cc._compress_plain(data.cpu(), lengths.cpu(), o8)
+        _equal((comp.cpu(), sizes.cpu()), want)
+        _equal([t.cpu() for t in got], cc._decompress_plain(*want, o8, 4096))
+        assert torch.equal(got[0], data) and bool((got[2] == 0).all())
+        with pytest.raises(ValueError, match="multiple of the element width"):
+            kc.decompress(comp, sizes, o8, 4092)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 def test_w8_codec_and_manager_round_trip_on_the_card(cuda):
     """cascaded_codec and CascadedManager take an 8-byte batch on the card
-    through the plain version: the same streams and artifact as on the CPU,
-    an exact round trip, and no Cascaded kernel launched."""
+    through the kernels: the same streams and artifact as on the CPU, an
+    exact round trip, and both Cascaded kernels launched."""
     import tpucomp_torch
 
     o8 = CascadedOpts(type=DataType.LONGLONG)
     raw = (np.arange(3000, dtype=np.int64) // 7).tobytes()
-    before = dict(kc.LAUNCHES)
     for dev in (cuda, "cpu"):
+        before = dict(kc.LAUNCHES)
         batch = tpucomp_torch.pack_chunks([raw[:8000], raw[8000:20000]], device=dev)
         comp = tpucomp_torch.cascaded_codec.compress(batch, o8)
         out, status = tpucomp_torch.cascaded_codec.decompress(comp, batch.capacity, o8)
@@ -114,31 +115,33 @@ def test_w8_codec_and_manager_round_trip_on_the_card(cuda):
         assert bytes(data.cpu().numpy()) == raw and not statuses.any()
         if dev == cuda:
             gpu = (comp.data.cpu(), comp.lengths.cpu(), artifact.cpu())
+            assert all(kc.LAUNCHES[k] >= before[k] + 2 for k in ("encode", "decode"))
+        else:
+            assert kc.LAUNCHES == before
     assert torch.equal(gpu[0], comp.data) and torch.equal(gpu[1], comp.lengths)
     assert torch.equal(gpu[2], artifact)
-    assert kc.LAUNCHES == before
 
 
 @pytest.mark.parametrize("type_", [DataType.LONGLONG, DataType.ULONGLONG])
 def test_w8_batches_off_the_cpu_take_the_plain_version(monkeypatch, type_):
-    """The codec routes 8-byte element types by type alone: a batch on a
-    device other than the CPU goes to the plain version, never to the
-    kernel wrappers (which refuse them)."""
+    """The codec routes by device alone: an 8-byte batch on a device other
+    than the CPU reaches the kernel wrappers, as every other type does, and
+    never the plain version (which runs only on CPU tensors)."""
     calls = []
 
-    def plain(name):
+    def kernel(name):
         def fn(*args):
             calls.append(name)
             return name
         return fn
 
-    def kernel(*args):
-        raise AssertionError("an 8-byte batch reached a kernel wrapper")
+    def plain(*args):
+        raise AssertionError("an 8-byte batch off the CPU reached the plain version")
 
-    monkeypatch.setattr(cc, "_compress_plain", plain("compress"))
-    monkeypatch.setattr(cc, "_decompress_plain", plain("decompress"))
-    monkeypatch.setattr(kc, "compress", kernel)
-    monkeypatch.setattr(kc, "decompress", kernel)
+    monkeypatch.setattr(cc, "_compress_plain", plain)
+    monkeypatch.setattr(cc, "_decompress_plain", plain)
+    monkeypatch.setattr(kc, "compress", kernel("compress"))
+    monkeypatch.setattr(kc, "decompress", kernel("decompress"))
     o = CascadedOpts(type=type_)
     rows = torch.zeros(2, 64, dtype=torch.uint8, device="meta")
     sizes = torch.zeros(2, dtype=torch.int32, device="meta")

@@ -6,7 +6,7 @@ and its CUDA kernels (tests/test_torch_kernels.py, chip_smoke.py).  Options
 are plain field dicts, so each package builds its own CascadedOpts.
 
 The cases held against the JAX package on the CPU stay at 1-5 partitions
-of <= 16 KB; the kernel cases add random ones up to 40 KB and two 16 MB
+of <= 40 KB; the kernel cases add more random ones and two 16 MB
 partitions, which only the card runs.
 """
 
@@ -60,6 +60,8 @@ def profile_bytes(rng, name: str, nbytes: int, width: int) -> bytes:
         n = nbytes // width + 8
         return (np.repeat(rng.integers(-100, 100, n), rng.integers(1, 4, n))
                 .astype(t).tobytes()[:nbytes])
+    if name == "signed64":  # the same as int64 whatever the width
+        return profile_bytes(rng, "signed", nbytes, 8)
     raise ValueError(name)
 
 
@@ -91,9 +93,9 @@ def barely_compressible(rng, c: int = 16384):
     return words, np.array([c, c, c - 4], np.int32)
 
 
-def compress_cases(seed: int = 0, with_w8: bool = True):
+def compress_cases(seed: int = 0):
     """(label, opts fields, data uint8[B, C], lengths int32[B]) for every
-    compress case; w = 8 cases only when ``with_w8``."""
+    compress case."""
     rng = np.random.default_rng(seed)
     cases = []
     for i, (fields, c, profile) in enumerate(CONFIGS):
@@ -113,9 +115,7 @@ def compress_cases(seed: int = 0, with_w8: bool = True):
     # no layers at all: every partition falls back
     cases.append(("no-layers", opts(num_rles=0, num_deltas=0, use_bp=False),
                   *config_case(rng, DEFAULT, 4096, "runs")))
-    if with_w8:
-        cases.append(("longlong", opts(type=LONGLONG),
-                      *config_case(rng, opts(type=LONGLONG), 4096, "runs")))
+    cases.append(("longlong", opts(type=LONGLONG), *config_case(rng, opts(type=LONGLONG), 4096, "runs")))
     return cases
 
 
@@ -130,6 +130,12 @@ WIDE_CONFIGS = [
     (opts(type=SHORT, chunk_size=2048), 6146, "signed"),
     (DEFAULT, 10001, "runs"),
     (opts(type=UINT, chunk_size=512), 4096, "random"),
+    # 8-byte elements: small int64s of both signs, and int32 pairs (64-bit
+    # values whose high words are live, bit widths past 32)
+    (opts(type=LONGLONG, chunk_size=512, num_rles=7, num_deltas=7), 8192, "signed64"),
+    (opts(type=LONGLONG, chunk_size=16384, num_rles=7, num_deltas=7), 40004, "signed"),
+    (opts(type=ULONGLONG, chunk_size=512, num_rles=7, num_deltas=7), 6148, "signed"),
+    (opts(type=ULONGLONG, chunk_size=16384, num_rles=7, num_deltas=7), 33000, "signed64"),
 ]
 
 
@@ -141,12 +147,12 @@ def wide_cases(seed: int = 2):
 
 
 def fuzz_cases(seed: int, count: int):
-    """Random valid options (element widths 1, 2, 4), shapes, lengths and
+    """Random valid options (all eight element types), shapes, lengths and
     profiles: (label, opts fields, data, lengths)."""
     rng = np.random.default_rng(seed)
     cases = []
     for i in range(count):
-        dtype = int(rng.integers(0, 6))
+        dtype = int(rng.integers(0, 8))
         w = WIDTH[dtype]
         nr = int(rng.integers(0, 8))
         nd = int(rng.integers(0, (nr if nr else 7) + 1))
@@ -171,9 +177,56 @@ def large_case(seed: int = 3):
     return ("16MB-partitions", DEFAULT, arr, lens)
 
 
+INT64_MIN, INT64_MAX = -(2**63), 2**63 - 1
+
+
+def w8_cases(seed: int = 4):
+    """8-byte profiles, each batch (label, opts fields, data, lengths) of
+    4 partitions of 16 KB (four 4 KB scheme chunks), the last ragged:
+
+    - INT64_MIN and INT64_MAX in one chunk among runs (a range that wraps:
+      bw = 64), with RLE alone (the run values are the final blob) and
+      with the default layers;
+    - values above 2**32 (and below -2**32) with small deltas;
+    - ULONGLONG values >= 2**63 (negative as signed), some rows crossing
+      2**63 to small values;
+    - lengths that are not a multiple of 8 and all-equal chunks."""
+    rng = np.random.default_rng(seed)
+    c, n = 16384, 2048
+
+    def runs(lo, hi):
+        return np.repeat(rng.integers(lo, hi, n), rng.integers(1, 12, n))[:n].astype(np.int64)
+
+    def rows(cols, lens=None):
+        arr = np.stack([col.view(np.uint8) for col in cols])
+        return arr, np.array(lens or [c] * len(cols), np.int32)
+
+    ext = []
+    for _ in range(4):
+        col = runs(-50, 50)
+        col[rng.integers(0, 512)] = INT64_MIN  # both in the first chunk
+        col[rng.integers(0, 512)] = INT64_MAX
+        ext.append(col)
+    ext_rows = rows(ext, [c, c, c, c - 8 * 37 - 5])
+    big = [2**40 + np.cumsum(rng.integers(1, 6, n)), -(2**40) - np.cumsum(rng.integers(0, 4, n)),
+           1_700_000_000_000_000 + np.repeat(np.cumsum(rng.integers(-3, 4, n)), 3)[:n] * 1000,
+           (np.int64(1) << 33) * runs(-3, 4)]
+    high = [runs(0, 40) + INT64_MIN, INT64_MIN + np.cumsum(rng.integers(0, 3, n)),
+            np.where(np.arange(n) % 700 < 350, INT64_MIN + 5, 7).astype(np.int64), runs(-40, 40)]
+    equal = [np.full(n, 0x0123456789ABCDEF, np.int64), np.full(n, -1, np.int64),
+             np.concatenate([np.full(1024, 5, np.int64), runs(0, 9)[:1024]]), np.zeros(n, np.int64)]
+    return [
+        ("w8-int64-extremes-rle", opts(type=LONGLONG, num_rles=1, num_deltas=0), *ext_rows),
+        ("w8-int64-extremes", opts(type=LONGLONG), *ext_rows),
+        ("w8-above-2^32", opts(type=LONGLONG), *rows(big, [c, c - 3, c - 8, c - 4093])),
+        ("w8-ulonglong-high", opts(type=ULONGLONG), *rows(high, [c, c - 1, c, c - 8 * 100 - 7])),
+        ("w8-ragged-all-equal", opts(type=ULONGLONG), *rows(equal, [c - 7, 8 * 513 + 3, c, 5])),
+    ]
+
+
 def kernel_cases():
     """Every case the CUDA kernels are held to their plain versions on."""
-    return (compress_cases(with_w8=False) + wide_cases() + fuzz_cases(0, 48)
+    return (compress_cases() + wide_cases() + fuzz_cases(0, 48) + w8_cases()
             + [large_case()])
 
 

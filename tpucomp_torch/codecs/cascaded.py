@@ -20,11 +20,10 @@ capping output at roundUp4(n) + 8.
 formulation (the counterparts of the JAX package's ``_compress_xla`` /
 ``_decompress_xla``): dense tensor math over [batch, chunk, element] that
 runs on CPU and CUDA tensors alike.  The public ``compress`` /
-``decompress`` route by device: a CPU tensor takes the plain formulation,
-a CUDA tensor the hand-written kernels in ``kernels/cascaded_cuda.py``
-(``config.use_cuda_kernels`` can refuse either), except 8-byte element
-types, which the kernels do not take: they take the plain formulation on
-the card too.
+``decompress`` route by device alone: a CPU tensor takes the plain
+formulation, a CUDA tensor the hand-written kernels in
+``kernels/cascaded_cuda.py``, every element type included
+(``config.use_cuda_kernels`` can refuse either).
 """
 
 from __future__ import annotations
@@ -456,13 +455,11 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: CascadedOpts):
     data: uint8[B, C]; lengths: int32[B].  Returns (comp uint8[B, PMAX],
     comp_sizes int32[B]).  Lengths that are not a multiple of the element
     width are truncated.  A CPU batch takes the plain formulation, a CUDA
-    batch the encode kernel (``config.kernels_enabled``); 8-byte element
-    types, which the kernels do not take, take the plain formulation on
-    either device (as the JAX package sends them to XLA, not to its Pallas
-    kernels).
+    batch the encode kernel (``config.kernels_enabled``), whatever the
+    element type.
     """
     opts.validate()
-    if not config.kernels_enabled(data.device) or width_of(opts.type) == 8:
+    if not config.kernels_enabled(data.device):
         return _compress_plain(data, lengths, opts)
     from tpucomp_torch.kernels import cascaded_cuda
 
@@ -476,11 +473,10 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: CascadedOpts,
     int32[B]).  Partitions whose stream metadata does not match ``opts``
     (other than the raw fallback) report ERROR_CANNOT_DECOMPRESS.  A CPU
     batch takes the plain formulation, a CUDA batch the decode kernel
-    (``config.kernels_enabled``); 8-byte element types take the plain
-    formulation on either device.
+    (``config.kernels_enabled``), whatever the element type.
     """
     opts.validate()
-    if not config.kernels_enabled(comp.device) or width_of(opts.type) == 8:
+    if not config.kernels_enabled(comp.device):
         return _decompress_plain(comp, comp_sizes, opts, out_capacity)
     from tpucomp_torch.kernels import cascaded_cuda
 

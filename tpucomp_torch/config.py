@@ -13,10 +13,8 @@
     have no interpreted form to run on the CPU)
 
 So the flag never changes what a batch runs: it asserts the route, and
-refuses a batch whose device would take the other one.
-
-8-byte Cascaded element types take the plain version whatever the flag
-says: the kernels do not take them.
+refuses a batch whose device would take the other one.  Every codec and
+element type follows it, the 8-byte Cascaded types included.
 """
 
 from __future__ import annotations

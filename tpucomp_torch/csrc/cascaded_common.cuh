@@ -15,6 +15,8 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace tpucomp {
@@ -47,8 +49,15 @@ __host__ __device__ __forceinline__ long long floor_div(long long x, long long y
   return (q * y != x && ((x < 0) != (y < 0))) ? q - 1 : q;
 }
 
-__device__ __forceinline__ uint32_t unit_mask(int width) {
-  return width >= 4 ? 0xffffffffu : ((1u << (8 * width)) - 1u);
+// An element is held in a unit U: uint32_t for widths 1, 2 and 4,
+// unsigned long long for 8 (LONGLONG / ULONGLONG).  S is its signed reading.
+template <class U>
+using SignedOf = typename std::conditional<sizeof(U) == 8, long long, int>::type;
+
+// the low 8 * width bits of a unit
+template <class U = uint32_t>
+__device__ __forceinline__ U unit_mask(int width) {
+  return width >= (int)sizeof(U) ? ~U(0) : ((U(1) << (8 * width)) - U(1));
 }
 
 // signed reading of a unit of `width` bytes
@@ -57,8 +66,25 @@ __device__ __forceinline__ int32_t sext(uint32_t v, int width) {
   int sh = 32 - 8 * width;
   return ((int32_t)(v << sh)) >> sh;
 }
+__device__ __forceinline__ long long sext(unsigned long long v, int) { return (long long)v; }
 
-__device__ __forceinline__ int bit_width32(uint32_t r) { return r ? 32 - __clz(r) : 0; }
+__device__ __forceinline__ int bit_width(uint32_t r) { return r ? 32 - __clz(r) : 0; }
+__device__ __forceinline__ int bit_width(unsigned long long r) { return r ? 64 - __clzll((long long)r) : 0; }
+
+// Warp-wide minimum and maximum: the card's reductions for 32 bits, a
+// butterfly of shuffles for 64 (__reduce_*_sync has no 64-bit form).
+__device__ __forceinline__ int warp_min(int v) { return __reduce_min_sync(kFull, v); }
+__device__ __forceinline__ int warp_max(int v) { return __reduce_max_sync(kFull, v); }
+__device__ __forceinline__ long long warp_min(long long v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = min(v, (long long)__shfl_xor_sync(kFull, v, o));
+  return v;
+}
+__device__ __forceinline__ long long warp_max(long long v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = max(v, (long long)__shfl_xor_sync(kFull, v, o));
+  return v;
+}
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 

@@ -47,8 +47,13 @@
 // them in int32, so the two could differ only on streams whose chunks claim
 // more than 2**31 elements in total.
 //
-// Supported: element widths 1, 2 and 4; every validated option set.  The
-// 8-byte element types are refused by the Python wrapper.
+// Elements are held in 32-bit units for widths 1, 2 and 4 and in 64-bit
+// units for 8 (LONGLONG / ULONGLONG), one instantiation each; the 64-bit
+// one reads tpucomp's XLA streams for w = 8: a 16-byte bitpack header,
+// bit widths up to 64 (an element spans up to three words), 8-byte Delta
+// first values, Delta wrapping in 64 bits.
+//
+// Supported: element widths 1, 2, 4 and 8; every validated option set.
 
 #include "cascaded_common.cuh"
 
@@ -68,7 +73,7 @@ struct DecodeParams {
   int32_t* status;
   long long batch, row_bytes, out_capacity;  // row_bytes: CMAX
   int width, dtype, elems, k, nr, nd, bp;
-  int slots, parts, arr_words;  // TeamPlan; words of each of a team's three arrays
+  int slots, parts, arr_words;  // TeamPlan; E rounded up to 4: the elements of each of a team's arrays
 };
 
 // One compressed row, read as bytes (zero past its end) or as u32 words
@@ -99,24 +104,26 @@ struct Row {
 };
 
 // A chunk's metadata, parsed by one lane.
+template <class U>
 struct ChunkInfo {
   long long base, final_off, rle_off[7], sizes[9];
-  uint32_t firsts[7];
+  U firsts[7];
   int ok;
 };
 
 // The metadata of the chunk at `pos`, every blob checked against the
 // compressed size (end_words) before any is read.
+template <class U>
 __device__ void parse_chunk(const Row& row, long long pos, long long end_words, const DecodeParams& p,
-                            ChunkInfo& ci) {
+                            ChunkInfo<U>& ci) {
   const int w = p.width;
   const long long clamp = p.row_bytes + 8;
   const int dh_off = (int)round_up(4 + 4 * (p.nr + 1), w);
   const int meta_size = dh_off + (int)round_up(w * p.nd, 4);
   for (int j = 0; j < p.nr + 2; ++j) ci.sizes[j] = min((long long)row.bytes4(pos + 4 * j), clamp);
   for (int d = 0; d < p.nd; ++d) {
-    uint32_t v = 0;
-    for (int q = 0; q < w; ++q) v |= (uint32_t)row.byte(pos + dh_off + d * w + q) << (8 * q);
+    U v = 0;
+    for (int q = 0; q < w; ++q) v |= (U)row.byte(pos + dh_off + d * w + q) << (8 * q);
     ci.firsts[d] = v;
   }
   ci.base = pos + meta_size;
@@ -134,45 +141,77 @@ __device__ void parse_chunk(const Row& row, long long pos, long long end_words, 
 // The blob at `off` (raw units or a bitpack blob) into dst, one element a
 // lane: its first min(count, e) elements, then zeros up to `zeros_to`
 // (below e).  Returns the blob's own element count, which may exceed e.  Element i is bits [i * bw, (i + 1) * bw) of the little-endian
-// stream from the word at `off + 8` (bitpack; raw: `off`, bw = 8 * width,
-// frame 0) floored, as the reference reads it unit by unit: a funnel shift
-// of the two words it lies in.  Where every word read lies inside the row
-// they are loaded directly, else through Row::word's clamping.
-__device__ long long team_read_blob(const Row& row, long long off, long long size, int width, bool bp,
-                                    uint32_t* dst, int e, long long zeros_to) {
-  const uint32_t mask = unit_mask(width);
+// stream from the word after the header (8 bytes, 16 for 8-byte units;
+// raw: from `off`, bw = 8 * width, frame 0) floored, as the reference
+// reads it unit by unit: a funnel shift of the two words it lies in (of
+// three words for 8-byte units).  Where every word read lies inside the
+// row they are loaded directly, else through Row::word's clamping.
+template <class U>
+__device__ long long team_read_blob(const Row& row, long long off, long long size, int width, bool bp, U* dst,
+                                    int e, long long zeros_to) {
+  constexpr bool kWide = sizeof(U) == 8;
+  const U mask = unit_mask<U>(width);
   const int tbits = 8 * width;
   long long n = size / width, da = off;
-  uint32_t frame = 0;
+  U frame = 0;
   int bw = tbits;
   if (bp) {
     frame = row.word(off >> 2) & mask;
-    const uint32_t bw_word = row.word((off + 4) >> 2);
+    if constexpr (kWide) frame |= (U)row.word((off + 4) >> 2) << 32;
+    const uint32_t bw_word = row.word((off + (kWide ? 8 : 4)) >> 2);
     n = bw_word & 0xffffu;
     bw = min((int)(bw_word >> 16), tbits);  // clamp corrupt widths
-    da = off + 8;
+    da = off + (kWide ? 16 : 8);
   }
-  const uint32_t vmask = bw >= 32 ? 0xffffffffu : ((1u << bw) - 1u);
   const long long wb = da >> 2;
   const int m = (int)min(n, (long long)e);  // elements read
-  const bool direct = row.aligned && m > 0 && 4 * (wb + (((long long)(m - 1) * bw) >> 5) + 2) <= row.bytes;
   const uint32_t* wp = reinterpret_cast<const uint32_t*>(row.p) + wb;
   const int count = (int)max((long long)m, min(zeros_to, (long long)e));
-  for (int i0 = lane_id(); i0 < count; i0 += 32 * kBatch) {
-    uint32_t lo[kBatch], hi[kBatch];  // kBatch elements' words in flight
+  // two loops, not one over a word count: a loop shared with the 64-bit
+  // form cost the 32-bit kernel 4 registers and 6% on run-heavy decode
+  // on an H100 (scripts/torch_cascaded_ab.py; PERF.md §6)
+  if constexpr (kWide) {
+    const U vmask = bw >= 64 ? ~U(0) : ((U(1) << bw) - U(1));
+    const bool direct = row.aligned && m > 0 && 4 * (wb + (((long long)(m - 1) * bw) >> 5) + 3) <= row.bytes;
+    for (int i0 = lane_id(); i0 < count; i0 += 32 * kBatch) {
+      uint32_t w0[kBatch], w1[kBatch], w2[kBatch];  // kBatch elements' words in flight
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + 32 * u, j = (i * bw) >> 5;
-      lo[u] = hi[u] = 0;
-      if (i < m && bw > 0) {
-        lo[u] = direct ? wp[j] : row.word(wb + j);
-        hi[u] = direct ? wp[j + 1] : row.word(wb + j + 1);
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u, j = (i * bw) >> 5;
+        w0[u] = w1[u] = w2[u] = 0;
+        if (i < m && bw > 0) {
+          w0[u] = direct ? wp[j] : row.word(wb + j);
+          w1[u] = direct ? wp[j + 1] : row.word(wb + j + 1);
+          w2[u] = direct ? wp[j + 2] : row.word(wb + j + 2);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u, sh = (i * bw) & 31;
+        U v = ((U)w1[u] << 32 | w0[u]) >> sh;
+        if (sh) v |= (U)w2[u] << (64 - sh);
+        if (i < count) dst[i] = i < m ? (v & vmask) + frame : U(0);
       }
     }
+  } else {
+    const uint32_t vmask = bw >= 32 ? 0xffffffffu : ((1u << bw) - 1u);
+    const bool direct = row.aligned && m > 0 && 4 * (wb + (((long long)(m - 1) * bw) >> 5) + 2) <= row.bytes;
+    for (int i0 = lane_id(); i0 < count; i0 += 32 * kBatch) {
+      uint32_t lo[kBatch], hi[kBatch];  // kBatch elements' words in flight
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + 32 * u;
-      if (i < count) dst[i] = i < m ? ((__funnelshift_r(lo[u], hi[u], (i * bw) & 31) & vmask) + frame) & mask : 0u;
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u, j = (i * bw) >> 5;
+        lo[u] = hi[u] = 0;
+        if (i < m && bw > 0) {
+          lo[u] = direct ? wp[j] : row.word(wb + j);
+          hi[u] = direct ? wp[j + 1] : row.word(wb + j + 1);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u;
+        if (i < count) dst[i] = i < m ? ((__funnelshift_r(lo[u], hi[u], (i * bw) & 31) & vmask) + frame) & mask : 0u;
+      }
     }
   }
   __syncwarp();
@@ -180,15 +219,16 @@ __device__ long long team_read_blob(const Row& row, long long off, long long siz
 }
 
 // In place: a[i] = first + sum(a[j] for j < i, j < n) for i <= n, i < e.
-__device__ void team_delta_decode(uint32_t* a, long long n, uint32_t first, int e, uint32_t mask) {
+template <class U>
+__device__ void team_delta_decode(U* a, long long n, U first, int e, U mask) {
   const int live = (int)min(n + 1, (long long)e);
   const Seg sg = lane_segment(live);
-  uint32_t local = 0;
-  for (int i = sg.lo; i < sg.hi; ++i) local += i < n ? a[i] : 0u;
-  uint32_t total;
-  uint32_t run = warp_exclusive_scan(local, total);
+  U local = 0;
+  for (int i = sg.lo; i < sg.hi; ++i) local += i < n ? a[i] : U(0);
+  U total;
+  U run = warp_exclusive_scan(local, total);
   for (int i = sg.lo; i < sg.hi; ++i) {
-    const uint32_t v = i < n ? a[i] : 0u;
+    const U v = i < n ? a[i] : U(0);
     a[i] = (first + run) & mask;
     run += v;
   }
@@ -201,8 +241,8 @@ __device__ void team_delta_decode(uint32_t* a, long long n, uint32_t first, int 
 // element with the last run started at or before it.  The scans cover the
 // runs and the elements that exist, not all e.  z is overwritten.  Returns
 // the unclipped total of the counts.
-__device__ long long team_rle_decode(const uint32_t* vals, uint32_t* z, long long num_runs, uint32_t* out,
-                                     int e) {
+template <class U>
+__device__ long long team_rle_decode(const U* vals, uint32_t* z, long long num_runs, U* out, int e) {
   const int runs = (int)min(num_runs, (long long)e);
   Seg sg = lane_segment(runs);
   int local = 0;
@@ -218,15 +258,15 @@ __device__ long long team_rle_decode(const uint32_t* vals, uint32_t* z, long lon
   for (int j = lane_id(); j < live; j += 32) out[j] = 0;
   __syncwarp();
   for (int i = sg.lo; i < sg.hi; ++i)
-    if (z[i] != kNoRun) out[z[i]] = (uint32_t)i + 1;
+    if (z[i] != kNoRun) out[z[i]] = (U)i + 1;
   __syncwarp();
   sg = lane_segment(live);
   uint32_t m = 0;
-  for (int j = sg.lo; j < sg.hi; ++j) m = max(m, out[j]);
+  for (int j = sg.lo; j < sg.hi; ++j) m = max(m, (uint32_t)out[j]);
   m = warp_exclusive_max(m);
   for (int j = sg.lo; j < sg.hi; ++j) {
-    m = max(m, out[j]);
-    out[j] = m ? vals[m - 1] : 0u;
+    m = max(m, (uint32_t)out[j]);
+    out[j] = m ? vals[m - 1] : U(0);
   }
   __syncwarp();
   return total;
@@ -235,10 +275,11 @@ __device__ long long team_rle_decode(const uint32_t* vals, uint32_t* z, long lon
 // The inverse op schedule of one chunk by one warp; `cur` ends holding the
 // chunk's elements (the two arrays swap roles at each RLE expansion).
 // Returns their count (which may exceed e).
-__device__ long long decode_chunk(const Row& row, const ChunkInfo& ci, const DecodeParams& p, uint32_t*& cur,
-                                  uint32_t*& alt, uint32_t* z) {
+template <class U>
+__device__ long long decode_chunk(const Row& row, const ChunkInfo<U>& ci, const DecodeParams& p, U*& cur, U*& alt,
+                                  uint32_t* z) {
   const int e = p.elems, w = p.width;
-  const uint32_t mask = unit_mask(w);
+  const U mask = unit_mask<U>(w);
   // no stage reads past its input's count (the counts read up to the runs
   // they expand), so elements past a stage's count are left as they are
   long long n = team_read_blob(row, ci.base + ci.final_off, ci.sizes[p.nr + 1], w, p.bp, cur, e, 0);
@@ -252,26 +293,28 @@ __device__ long long decode_chunk(const Row& row, const ChunkInfo& ci, const Dec
     }
     if (rle_rem > 0 && rle_rem >= delta_rem) {
       const int r = rle_rem - 1;
-      team_read_blob(row, ci.base + ci.rle_off[r], ci.sizes[r + 1], 2, p.bp, z, e, n);
+      team_read_blob<uint32_t>(row, ci.base + ci.rle_off[r], ci.sizes[r + 1], 2, p.bp, z, e, n);
       n = team_rle_decode(cur, z, n, alt, e);
-      uint32_t* t = cur; cur = alt; alt = t;
+      U* t = cur; cur = alt; alt = t;
       --rle_rem;
     }
   }
   return n;
 }
 
+template <class U>
 __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_decode_kernel(DecodeParams p) {
   extern __shared__ __align__(16) uint32_t smem[];
-  __shared__ ChunkInfo info[kMaxTeams];
+  __shared__ ChunkInfo<U> info[kMaxTeams];
   __shared__ long long chunk_at[kMaxTeams];  // each team's chunk position, or kNoChunk
   __shared__ long long counts[kMaxTeams];    // each team's element count, kNoChunk or kBadChunk
   __shared__ long long walk_end[kMaxTeams];
   const int team = threadIdx.x >> 5, lane = lane_id();
   const int e = p.elems, w = p.width;
-  uint32_t* cur = smem + (long long)team * 3 * p.arr_words;
-  uint32_t* alt = cur + p.arr_words;
-  uint32_t* z = alt + p.arr_words;
+  // a team's workspace: two arrays of units and the u32 counts
+  U* cur = reinterpret_cast<U*>(smem + (long long)team * (2 * sizeof(U) / 4 + 1) * p.arr_words);
+  U* alt = cur + p.arr_words;
+  uint32_t* z = reinterpret_cast<uint32_t*>(alt + p.arr_words);
 
   // this team's partition, and its slot among the partition's teams
   const int q = team / p.slots, s = team % p.slots;
@@ -343,8 +386,9 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_decode_kernel(DecodeP
       const long long at0 = placed_end + before;
       const long long placed = min(min(n, (long long)e), cap_elems - at0);
       for (long long j = lane; j < placed; j += 32) {
-        const uint32_t v = cur[j];
-        if (w == 4) reinterpret_cast<uint32_t*>(o)[at0 + j] = v;
+        const U v = cur[j];
+        if constexpr (sizeof(U) == 8) reinterpret_cast<unsigned long long*>(o)[at0 + j] = v;
+        else if (w == 4) reinterpret_cast<uint32_t*>(o)[at0 + j] = v;
         else if (w == 2) reinterpret_cast<uint16_t*>(o)[at0 + j] = (uint16_t)v;
         else o[at0 + j] = (uint8_t)v;
       }
@@ -373,6 +417,17 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_decode_kernel(DecodeP
   }
 }
 
+template <class U>
+int launch_decode(const DecodeParams& p, const TeamPlan& plan, cudaStream_t st) {
+  const size_t smem = (size_t)(plan.teams * plan.ws_bytes);
+  const cudaError_t err = cudaFuncSetAttribute(cascaded_decode_kernel<U>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((p.batch + plan.parts - 1) / plan.parts);
+  cascaded_decode_kernel<U><<<grid, 32 * plan.teams, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace tpucomp
 
@@ -383,17 +438,15 @@ extern "C" int tc_cascaded_decode(const void* comp, const void* comp_sizes, void
                                   long long row_bytes, long long out_capacity, int width, int dtype,
                                   int elems, int k, int nr, int nd, int bp, void* stream) {
   using namespace tpucomp;
+  // a team's workspace: two arrays of E units (4 bytes, 8 for w = 8) and
+  // the u32 counts
+  const bool wide = width == 8;
   const long long arr_words = round_up(elems, 4);
-  const TeamPlan plan = plan_teams(3 * 4 * arr_words, k);
-  DecodeParams p{static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_sizes),
-                 static_cast<uint8_t*>(out), static_cast<int32_t*>(out_bytes),
-                 static_cast<int32_t*>(status), batch, row_bytes, out_capacity, width, dtype, elems, k,
-                 nr, nd, bp, plan.slots, plan.parts, (int)arr_words};
-  const size_t smem = (size_t)(plan.teams * plan.ws_bytes);
-  cudaError_t err = cudaFuncSetAttribute(cascaded_decode_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((batch + plan.parts - 1) / plan.parts);
-  cascaded_decode_kernel<<<grid, 32 * plan.teams, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  const TeamPlan plan = plan_teams((wide ? 20 : 12) * arr_words, k);
+  const DecodeParams p{static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_sizes),
+                       static_cast<uint8_t*>(out), static_cast<int32_t*>(out_bytes),
+                       static_cast<int32_t*>(status), batch, row_bytes, out_capacity, width, dtype, elems, k,
+                       nr, nd, bp, plan.slots, plan.parts, (int)arr_words};
+  return wide ? launch_decode<unsigned long long>(p, plan, static_cast<cudaStream_t>(stream))
+              : launch_decode<uint32_t>(p, plan, static_cast<cudaStream_t>(stream));
 }

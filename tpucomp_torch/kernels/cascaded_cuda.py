@@ -12,7 +12,9 @@ decode             ``csrc/cascaded_decode.cu``     ``tpucomp/kernels/cascaded_pa
 The wrappers take CUDA tensors only and launch on PyTorch's current
 stream; they raise on anything the kernels do not take (a CPU tensor goes
 to the plain version through ``codecs.cascaded.compress`` /
-``decompress``, never through here).  Both kernels write every byte of
+``decompress``, never through here).  Every element type is taken: the
+kernels hold widths 1, 2 and 4 in 32-bit units and the 8-byte types
+(LONGLONG / ULONGLONG) in 64-bit units, one instantiation each.  Both kernels write every byte of
 their outputs (rows up to PMAX or ``out_capacity``, zeros past the data,
 and every size and status), so outputs are allocated with ``torch.empty``.
 ``LAUNCHES`` counts the launches of each kernel.
@@ -37,12 +39,6 @@ def _check(opts: CascadedOpts, *tensors: torch.Tensor) -> None:
             raise ValueError(f"the CUDA cascaded kernels take CUDA tensors, got one on {t.device}")
         if t.device != tensors[0].device:
             raise ValueError("all tensors must lie on one device")
-    if width_of(opts.type) == 8:
-        raise NotImplementedError(
-            "the CUDA cascaded kernels do not support 8-byte element types yet "
-            "(ROADMAP.md, Queue 2: w=8 kernel support); codecs.cascaded.compress "
-            "and decompress send them to the plain version on any device"
-        )
 
 
 def _stream(device: torch.device):

@@ -1,10 +1,14 @@
-"""The port's measurement corpora: the mixed corpus and the run-heavy columns.
+"""The port's measurement corpora: the mixed corpus, the run-heavy columns
+and two 64-bit columns.
 
 ``chip_smoke.py`` and the A/B scripts under ``scripts/`` time the kernels
-on these.  Both return the same bytes as the JAX package's bench loaders
-of the same names (``bench.py``), with one difference: a missing
-``corpus/mixed_v1.bin.gz`` raises instead of giving way to a synthetic
-corpus, so a timing can never be taken on other data than it names.
+on these.  ``load_corpus`` and ``runheavy_corpus`` return the same bytes
+as the JAX package's bench loaders of the same names (``bench.py``), with
+one difference: a missing ``corpus/mixed_v1.bin.gz`` raises instead of
+giving way to a synthetic corpus, so a timing can never be taken on other
+data than it names.  ``runheavy64_corpus`` and ``timestamps64_corpus``
+are the port's own, for the 8-byte Cascaded types (LONGLONG /
+ULONGLONG): int64 columns whose high words are live.
 """
 
 from __future__ import annotations
@@ -47,3 +51,30 @@ def runheavy_corpus(total_bytes: int, seed: int = 2) -> bytes:
     if col.size < n:
         col = np.pad(col, (0, n - col.size), mode="edge")
     return col.tobytes()[:total_bytes]
+
+
+BASE64 = 1_700_000_000_000_000  # microseconds since 1970: a time in 2023
+
+
+def runheavy64_corpus(total_bytes: int, seed: int = 2) -> bytes:
+    """``runheavy_corpus``'s runs (4 to 47 equal values, drifting by -3..3
+    from run to run) as int64 at ``BASE64 + 1000 * drift``."""
+    rng = np.random.default_rng(seed)
+    n = total_bytes // 8
+    n_runs = n // 16 + 2
+    runlens = rng.integers(4, 48, size=n_runs)
+    vals = BASE64 + 1000 * np.cumsum(rng.integers(-3, 4, size=n_runs))
+    col = np.repeat(vals, runlens)[:n].astype(np.int64)
+    if col.size < n:
+        col = np.pad(col, (0, n - col.size), mode="edge")
+    return col.tobytes()[:total_bytes]
+
+
+def timestamps64_corpus(total_bytes: int, seed: int = 3) -> bytes:
+    """Strictly increasing int64 timestamps in microseconds from ``BASE64``, steps of 900
+    to 1100: every value distinct, so RLE finds nothing and Delta with
+    bit-packing carries the column."""
+    rng = np.random.default_rng(seed)
+    n = -(-total_bytes // 8)
+    col = BASE64 + np.cumsum(rng.integers(900, 1101, size=n))
+    return col.astype(np.int64).tobytes()[:total_bytes]
