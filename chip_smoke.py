@@ -7,8 +7,9 @@ Run from the repository root with no arguments::
 
 It drives the port's main paths, Cascaded, LZ4, Snappy and the high-level
 managers, then the host surface above them (the routing flag, sharding,
-multihost, the CLI, native staging), in phases, each printing one line
-(any failure raises and exits non-zero):
+multihost, the CLI, native staging), the batch-API conformance matrix,
+the bench and the examples, in phases, each printing one line (any
+failure raises and exits non-zero):
 
 1. device: the card's name, and its power limit from nvidia-smi
 2. build: the CUDA kernels from tpucomp_torch/csrc, with nvcc, timed
@@ -118,6 +119,26 @@ multihost, the CLI, native staging), in phases, each printing one line
    versions timed once, the kernels held to them on each whole batch;
    each cell's byte bounds (the kernels line's 8-byte rows read
    timestamps64 under LONGLONG)
+20. conformance: tests/test_batch_api.py's matrix through the port's
+   low-level codecs (lowlevel/{cascaded,lz4,snappy}.py) on cuda:0, batch
+   sizes 1, 11, 127, 1025 and 10025 at capacity 2048 (its payload
+   generator and seed, tests/torch_batch_cases.py): temp sizes 0, sizes
+   within compress_get_max_output_chunk_size, get_decompress_size equal to
+   the input lengths, exact round trips, compressed rows and sizes and
+   decoded rows equal to the plain versions (tolerance 0); garbage rows
+   give only SUCCESS or ERROR_CANNOT_DECOMPRESS, length 0 where decode
+   failed
+21. bench: ``python -m tpucomp_torch.bench --codec main`` and ``--codec
+   snappy`` as subprocesses (every cell at 256 MB): exit codes, the last
+   lines parsed, every round trip exact, each cell's kernels launched;
+   the Cascaded cells' whole calls held to phase 5's kernel medians (below
+   0.9 x is an impossible reading and fails), each cell's times printed
+   beside its kernels' (the LZ cells beside phases 8 and 12, on another
+   rotation of the corpus); then scripts/torch_bench_profile.py in a
+   process of its own: one torch.profiler window over each bench cell's
+   calls, the device's idle share of the whole calls
+22. examples: examples/torch_round_trip.py and examples/torch_distributed.py
+   run on the card as subprocesses, exit code 0 (their asserts held)
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -1046,13 +1067,13 @@ def phase_profile(corpora):
     device's idle share over the step's wall time, and the device time of
     fill kernels in the step (the wrappers allocate with torch.empty)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from tpucomp_torch.core.options import CascadedOpts
     from tpucomp_torch.kernels import cascaded_cuda as kc
     from tpucomp_torch.kernels import lz4_cuda as kl
     from tpucomp_torch.kernels import snappy_cuda as ks
+    from tpucomp_torch.utils.profiling import device_work
 
     data = corpora["mixed"]
     lengths = torch.full((B,), C, dtype=torch.int32, device=data.device)
@@ -1075,29 +1096,9 @@ def phase_profile(corpora):
                 kern.decompress(comp, sizes, C)
         return step
 
-    def step_wall_ms(step):
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return sorted(walls)[1]
-
     for path, step in (("cascaded", cascaded_step), ("lz4", lz_step(kl, _lz4_table)),
                        ("snappy", lz_step(ks, _snappy_table))):
-        wall_ms = step_wall_ms(step)  # host clock, without the profiler
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-        avg = {e.key: e for e in prof.key_averages()}
-        # device work: the device-side entries (kernels, copies, fills), but
-        # not the annotated ranges, which the profiler also lists as
-        # device-side spans over their kernels, nor its own buffer requests
-        work = {k: e.self_device_time_total / 1e3 for k, e in avg.items()
-                if e.device_type != DeviceType.CPU and k not in stages
-                and not k.startswith("Activity Buffer") and e.self_device_time_total > 0}
+        wall_ms, avg, work = device_work(step, stages)
         busy = sum(work.values())
         if busy <= 0:
             print(f"phase 9 profile {path}: the profiler reported no device time (not measured)", flush=True)
@@ -1446,6 +1447,202 @@ def phase_cli_native(corpora, smi):
     return result
 
 
+def phase_conformance(dev, counters, paths, smi):
+    """tests/test_batch_api.py's matrix through the port's low-level codecs
+    (lowlevel/{cascaded,lz4,snappy}.py) on the card, at batch sizes 1, 11,
+    127, 1025 and 10025 and capacity 2048 (its payload generator and seed,
+    tests/torch_batch_cases.py): temp sizes 0, sizes within
+    compress_get_max_output_chunk_size, get_decompress_size equal to the
+    input lengths, exact round trips, every compressed row and size and
+    every decoded row, length and status equal to the plain versions'
+    (tolerance 0); a garbage batch gives only SUCCESS or
+    ERROR_CANNOT_DECOMPRESS, length 0 where decode failed, equal to the
+    plain versions too.  Each codec launches its own kernels and no
+    other's.  Returns the max abs error per kernel and the rows checked by codec."""
+    import numpy as np
+    import torch
+
+    import torch_batch_cases as cases
+    import tpucomp_torch
+    from tpucomp_torch.codecs import cascaded as cc
+    from tpucomp_torch.codecs import lz4 as tl
+    from tpucomp_torch.codecs import snappy as ts
+    from tpucomp_torch.core.options import CascadedOpts
+    from tpucomp_torch.core.types import Status
+
+    o = CascadedOpts()
+    plain = {"cascaded": (lambda d, n: cc._compress_plain(d, n, o), lambda c, s, k: cc._decompress_plain(c, s, o, k)),
+             "lz4": (tl._compress_plain, tl._decompress_plain),
+             "snappy": (ts._compress_plain, ts._decompress_plain)}
+    cap = cases.CAPACITY
+    allowed = {int(Status.SUCCESS), int(Status.ERROR_CANNOT_DECOMPRESS)}
+    err = {"encode": 0, "decode": 0}
+    codecs = _codecs()
+    rows = dict.fromkeys(codecs, 0)
+    t0 = time.perf_counter()
+    for name, codec in codecs.items():
+        enc_plain, dec_plain = plain[name]
+
+        def decode_both(label, comp):
+            out, statuses = codec.decompress(comp, cap)
+            for part, g, w in zip(("data", "lengths", "status"), (out.data, out.lengths, statuses),
+                                  dec_plain(comp.data, comp.lengths, cap)):
+                err["decode"] = max(err["decode"], _equal(f"conformance {name} {label} decode {part}", g, w))
+            return out, statuses
+
+        _reset_counts(counters)
+        for n in cases.BATCH_SIZES:
+            payloads = cases.payloads(np.random.default_rng(0), name, n)
+            batch = tpucomp_torch.pack_chunks(payloads, capacity=cap, device=dev)
+            if codec.compress_get_temp_size(n, cap) or codec.decompress_get_temp_size(n, cap):
+                raise AssertionError(f"conformance {name} x {n}: a temp size is not 0")
+            comp = codec.compress(batch)
+            want = enc_plain(batch.data, batch.lengths)
+            err["encode"] = max(err["encode"], _equal(f"conformance {name} x {n} rows", comp.data, want[0]),
+                                _equal(f"conformance {name} x {n} sizes", comp.lengths, want[1]))
+            if not bool((comp.lengths <= codec.compress_get_max_output_chunk_size(cap)).all()):
+                raise AssertionError(f"conformance {name} x {n}: a size exceeds the worst-case bound")
+            _equal(f"conformance {name} x {n} get_decompress_size", codec.get_decompress_size(comp), batch.lengths)
+            out, statuses = decode_both(f"x {n}", comp)
+            if bool(statuses.any()) or tpucomp_torch.unpack_chunks(out) != payloads:
+                raise AssertionError(f"conformance {name} x {n}: the round trip is not exact")
+            rows[name] += n
+            del batch, comp, want, out, statuses
+        garbage, sizes = cases.garbage(np.random.default_rng(0))
+        g = tpucomp_torch.ChunkBatch(torch.from_numpy(garbage).to(dev), torch.from_numpy(sizes).to(dev))
+        out, statuses = decode_both("garbage", g)
+        st = statuses.cpu().numpy()
+        if not set(np.unique(st).tolist()) <= allowed or (out.lengths.cpu().numpy()[st != 0] != 0).any():
+            raise AssertionError(f"conformance {name} garbage: statuses {st}, lengths {out.lengths}")
+        launched = {k: n for c in paths[name] for k, n in counters[c].items()}
+        if not all(launched.values()) or any(any(c.values()) for k, c in counters.items() if k not in paths[name]):
+            raise AssertionError(f"conformance {name}: launches {counters}")
+    torch.cuda.empty_cache()
+    print(f"phase 20 conformance: tests/test_batch_api.py's matrix through the low-level codecs on the card, "
+          f"batch sizes {cases.BATCH_SIZES} at capacity {cap} ({rows} rows by codec): temp sizes 0, sizes "
+          f"within the bound, get_decompress_size = lengths, exact round trips, compressed rows and sizes and "
+          f"decoded rows equal to the plain versions (tolerance 0, max abs err {err}); garbage rows give only "
+          f"SUCCESS or ERROR_CANNOT_DECOMPRESS with length 0 where decode failed "
+          f"({time.perf_counter() - t0:.1f} s) | {smi}", flush=True)
+    return err, rows
+
+
+BENCH_MODES = ("main", "snappy")  # between them, every cell of the bench
+
+
+def phase_bench(times, lz4_times, snappy_times, smi):
+    """``python -m tpucomp_torch.bench --codec main`` and ``--codec snappy``
+    as subprocesses: exit code 0, one JSON line, every cell at 256 MB with
+    an exact round trip and its codec's kernels launched (and no other's),
+    the card's name and power limit.  The Cascaded cells hold phase 4-5's
+    bytes: a whole call that reads below 0.9 x its kernel's median from
+    phase 5 is an impossible reading and fails.  Then
+    scripts/torch_bench_profile.py (``_bench_profile``).  Returns the
+    bench lines by mode and the profile's result."""
+    import torch
+
+    lines = {}
+    t_phase = time.perf_counter()
+    for mode in BENCH_MODES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tpucomp_torch.bench", "--codec", mode], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench --codec {mode} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        out = proc.stdout.strip().splitlines()
+        line = json.loads(out[-1])
+        lines[mode] = line
+        dev_info = line["device"]
+        if dev_info["platform"] != "gpu" or dev_info["kind"] != torch.cuda.get_device_name(0) or \
+                not dev_info["power_limit"]:
+            raise AssertionError(f"bench --codec {mode}: device {dev_info}")
+        print(f"phase 21 bench --codec {mode} ({time.perf_counter() - t0:.1f} s, build {line['build_s']:.2f} s): "
+              f"value {line['value']:.4f} {line['unit']}, vs_baseline {line['vs_baseline']}, "
+              f"device {dev_info['kind']}, {dev_info['power_limit']}", flush=True)
+        _bench_cells(line, times, lz4_times, snappy_times)
+    print(f"  phase 21 subprocesses: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return lines, _bench_profile(smi)
+
+
+def _bench_cells(line, times, lz4_times, snappy_times):
+    """Check each cell of one bench line and print its whole-call times
+    beside the kernels' times of phases 5, 8 and 12."""
+    import tpucomp_torch.bench as tb
+
+    kernels = {"cascaded": {"cascaded.encode", "cascaded.decode"},
+               "lz4": {"lz77.table", "lz4.encode", "lz4.decode"},
+               "snappy": {"lz77.table", "snappy.encode", "snappy.decode"}}
+    kernel_times = {"cascaded": times["mixed"], "cascaded-runheavy": times["runheavy"]}
+    for cell, r in line["cells"].items():
+        want = {k: tb.WARMUP + tb.ITERS + (2 if k.endswith(("encode", "table")) else 1)
+                for k in kernels[r["codec"]]}
+        if not r["roundtrip_ok"] or r["bytes"] != B * C or r["launches"] != want:
+            raise AssertionError(f"bench {cell}: round trip {r['roundtrip_ok']}, {r['bytes']} bytes, "
+                                 f"launches {r['launches']} (want {want})")
+        text = (f"  {cell} (seed {r['seed']}): whole calls encode {r['encode_ms']:.3f} ms (min "
+                f"{r['encode_min_ms']:.3f}, max {r['encode_max_ms']:.3f}), decode {r['decode_ms']:.3f} ms (min "
+                f"{r['decode_min_ms']:.3f}, max {r['decode_max_ms']:.3f}); {r['encode_gbps']:.3f} / "
+                f"{r['decode_gbps']:.3f} GB/s, ratio {r['ratio']:.4f}, peak memory of a compress "
+                f"{r['peak_compress_bytes'] / 1e6:.1f} MB; launches {r['launches']}")
+        if cell in kernel_times:
+            kt = kernel_times[cell]
+            for k in ("encode", "decode"):
+                if r[f"{k}_ms"] < 0.9 * kt[f"kernel_{k}"]["median_ms"]:
+                    raise AssertionError(f"bench {cell}: a whole {k} call reads {r[f'{k}_ms']:.3f} ms, below "
+                                         f"0.9 x its kernel's {kt[f'kernel_{k}']['median_ms']:.3f} ms (phase 5)")
+            text += (f"; phase 5's kernels on the same bytes: encode {kt['kernel_encode']['median_ms']:.3f} "
+                     f"ms, decode {kt['kernel_decode']['median_ms']:.3f} ms")
+        elif cell in ("lz4", "snappy"):
+            kt = {"lz4": lz4_times, "snappy": snappy_times}[cell]["mixed"]
+            text += (f"; phase {8 if cell == 'lz4' else 12}'s kernels on mixed seed 0, another rotation of "
+                     f"the corpus: table {kt['kernel_table']['median_ms']:.3f} + encode "
+                     f"{kt['kernel_encode']['median_ms']:.3f} ms, whole compress {kt['compress']['median_ms']:.3f}"
+                     f" ms, decode {kt['kernel_decode']['median_ms']:.3f} ms")
+        if "copy_gbps" in r:
+            text += (f"; ceiling (median over {tb.CEILING_GROUPS} groups of {tb.ITERS}): aligned copy "
+                     f"{r['copy_ms']:.3f} ms ({r['copy_gbps']:.1f} GB/s), the JAX bench's shifted copy "
+                     f"{r['memcpy_ms']:.3f} ms ({r['memcpy_gbps']:.1f} GB/s)")
+        print(text, flush=True)
+
+
+def _bench_profile(smi):
+    """scripts/torch_bench_profile.py as a subprocess (a process whose
+    profiler has traced nothing before): one torch.profiler window over
+    bench cell's calls, the device's idle share of the whole calls."""
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "torch_bench_profile.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_bench_profile.py exited {proc.returncode}: {proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    for cell, r in result["cells"].items():
+        idle = f"{r['idle']:.4f}" if r["idle"] is not None else "not measured (the profiler saw no device time)"
+        top = ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in r["largest"].items())
+        print(f"phase 21 profile of the bench's {cell} calls ({r['corpus']} seed {r['seed']}, one compress and one "
+              f"decompress of 256 MB, scripts/torch_bench_profile.py): wall {r['wall_ms']:.3f} ms (median of 3, "
+              f"no profiler), device busy {r['busy_ms']:.3f} ms, device idle {idle}; largest: {top} | {smi}",
+              flush=True)
+    return result
+
+
+EXAMPLES = ("torch_round_trip.py", "torch_distributed.py")
+
+
+def phase_examples(smi):
+    """The port's two examples run as a user runs them, on the card (their
+    default device): exit code 0, so every assert in them held."""
+    result = {}
+    for script in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", script)], cwd=ROOT,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"example {script} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        result[script] = proc.stdout.strip().splitlines()
+        print(f"phase 22 example {script}: rc 0 ({time.perf_counter() - t0:.1f} s): "
+              f"{' | '.join(result[script])} | {smi}", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1556,6 +1753,9 @@ def main() -> int:
             "sharding": phase_sharding(corpora, counters, paths, smi),
             "multihost": phase_multihost(smi),
             "cli_native": phase_cli_native(corpora, smi)}
+    conformance_err, conformance_rows = phase_conformance(dev, counters, paths, smi)
+    bench_lines, bench_idle = phase_bench(times, lz4_times, snappy_times, smi)
+    examples = phase_examples(smi)
 
     kernels = []
     mixed, lz4_mixed, snappy_mixed = times["mixed"], lz4_times["mixed"], snappy_times["mixed"]
@@ -1612,6 +1812,12 @@ def main() -> int:
     print(f"  HLIF: {json.dumps(hlif)}", flush=True)
     print(f"  scaling: {json.dumps(scaling)}", flush=True)
     print(f"  host surface: {json.dumps(host)}", flush=True)
+    print(f"  conformance: {json.dumps({'rows_by_codec': conformance_rows, 'max_abs_err': conformance_err})}",
+          flush=True)
+    for mode, line in bench_lines.items():
+        print(f"  bench --codec {mode}: {json.dumps(line)}", flush=True)
+    print(f"  bench profile: {json.dumps(bench_idle)}", flush=True)
+    print(f"  examples: {json.dumps(examples)}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -173,11 +173,13 @@ def test_port_never_imports_jax_or_tpucomp():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/torch_cascaded_ab.py",
-                                    "scripts/torch_multicard.py"])
+                                    "scripts/torch_multicard.py", "tpucomp_torch/bench.py",
+                                    "scripts/torch_bench_profile.py", "examples/torch_round_trip.py",
+                                    "examples/torch_distributed.py"])
 def test_chip_scripts_never_import_the_tpu_bench(script):
-    """The card's scripts take their corpora from the port
-    (tpucomp_torch/utils/corpus.py), not from the JAX package's bench,
-    and import neither jax nor tpucomp."""
+    """The card's scripts, the port's bench and its examples take their
+    corpora from the port (tpucomp_torch/utils/corpus.py), not from the
+    JAX package's bench, and import neither jax nor tpucomp."""
     path = pathlib.Path(tpucomp_torch.__file__).parent.parent / script
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

@@ -243,3 +243,16 @@ def test_profiling_trace_writes_a_directory(tmp_path):
     files = list(log_dir.iterdir())
     assert len(files) == 1 and files[0].name.endswith(".pt.trace.json")
     assert "pack_and_compress" in files[0].read_text()
+
+
+@pytest.mark.parametrize("measure", ["wall", "device_work"])
+def test_device_measurements_raise_without_a_card(monkeypatch, measure):
+    """wall and device_work time the card: without one they raise and run
+    nothing, so no host time is reported as a device time."""
+    from tpucomp_torch.utils import profiling
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        getattr(profiling, measure)(lambda: calls.append(1))
+    assert calls == []
