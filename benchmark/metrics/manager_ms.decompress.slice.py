@@ -1,0 +1,9 @@
+"""The device time of the manager's ``decompress.manager.slice`` span a call:
+the median CUDA-event time over the traced decompress calls, in ms
+(``benchmark/metrics/_port_spans.py``)."""
+
+from benchmark.metrics import _port_spans as port_spans
+
+
+def read(run):
+    return port_spans.device_ms("decompress.manager.slice")

@@ -56,10 +56,13 @@ failure raises and exits non-zero):
    time) and a device copy; the kernels are held to the plain versions on
    the whole batch; the peak memory of one compress; the decode time per
    sequence
-9. profile: one step of each main path (Cascaded, LZ4, Snappy) under
-   torch.profiler: device time by stage (LZ: table, encode, decode), the
-   largest kernels, the device time of fill kernels in the step (none:
-   every kernel writes all of its outputs) and the device's idle share
+9. profile: one step of each main path (Cascaded, LZ4, Snappy) through
+   the batch API under torch.profiler: device time by the port's own
+   spans (LZ: compress.<codec>.table, .encode, decompress.<codec>.decode),
+   the largest kernels, the device time of fill kernels in the step (the
+   tracer's counter buffer, zeroed at the first traced launch; no kernel
+   output: every kernel writes all of its outputs) and the device's idle
+   share; then phase 23
 10. Snappy kernels vs plain: the cases of tests/torch_snappy_cases.py
    (chunks from 64 B to 1 MB and one of 16 MB; the match table's edge rows
    with the Snappy window, 32768 and 32769 back; the oracle's streams, the
@@ -134,11 +137,19 @@ failure raises and exits non-zero):
    the Cascaded cells' whole calls held to phase 5's kernel medians (below
    0.9 x is an impossible reading and fails), each cell's times printed
    beside its kernels' (the LZ cells beside phases 8 and 12, on another
-   rotation of the corpus); then scripts/torch_bench_profile.py in a
-   process of its own: one torch.profiler window over each bench cell's
-   calls, the device's idle share of the whole calls
+   rotation of the corpus)
 22. examples: examples/torch_round_trip.py and examples/torch_distributed.py
    run on the card as subprocesses, exit code 0 (their asserts held)
+23. tracer (run right after phase 9): the port's spans and counters
+   (tpucomp_torch/utils/profiling.py) on both corpora at 256 MB.  Tracing
+   off, a round trip of each codec records nothing and makes no counter
+   buffer.  Under torch.profiler the kernels' counters hold to the
+   streams: cascaded.encode.partitions_raw equals the partitions whose
+   header has zero layer bytes, the chunks run less those discarded are
+   every chunk of the other partitions, and none is discarded on
+   runheavy; lz4.encode.sequences and lz4.decode.sequences both equal the
+   sequences the streams hold; snappy.encode.sequences and
+   snappy.decode.elements equal the Snappy streams' sequences and elements
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -1061,60 +1072,147 @@ def phase_hlif(corpora, counters, paths):
 
 
 def phase_profile(corpora):
-    """One step of each main path (Cascaded, LZ4, Snappy) on the mixed corpus under
-    torch.profiler, its stages called as the codecs call them (LZ: match
-    table, encode, decode): device time by stage and by kernel, and the
-    device's idle share over the step's wall time, and the device time of
-    fill kernels in the step (the wrappers allocate with torch.empty)."""
+    """One step of each main path (Cascaded, LZ4, Snappy) on the mixed
+    corpus, a compress and a decompress through the batch API, under
+    torch.profiler: device time by the port's own spans (LZ:
+    compress.<codec>.table, compress.<codec>.encode, decompress.<codec>.decode;
+    Cascaded: the encode and decode; ``_device_ms_by_span``), the largest
+    kernels, the device time of fill kernels in the step (the first traced
+    step fills the tracer's counter buffer; no kernel's output is filled:
+    every kernel writes all of its outputs) and the device's idle share
+    over the step's host-clock wall (median of 3 steps without the
+    profiler)."""
+    import statistics
+
     import torch
-    from torch.profiler import record_function
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    from tpucomp_torch.core.options import CascadedOpts
-    from tpucomp_torch.kernels import cascaded_cuda as kc
-    from tpucomp_torch.kernels import lz4_cuda as kl
-    from tpucomp_torch.kernels import snappy_cuda as ks
-    from tpucomp_torch.utils.profiling import device_work
+    import tpucomp_torch
 
-    data = corpora["mixed"]
-    lengths = torch.full((B,), C, dtype=torch.int32, device=data.device)
-    o = CascadedOpts()
-    stages = ("table", "encode", "decode")
+    batch = tpucomp_torch.ChunkBatch(corpora["mixed"], torch.full((B,), C, dtype=torch.int32,
+                                                                  device=corpora["mixed"].device))
+    for codec, opts in (("cascaded", tpucomp_torch.CascadedOpts()), ("lz4", tpucomp_torch.LZ4Opts()),
+                        ("snappy", tpucomp_torch.SnappyOpts())):
+        api = getattr(tpucomp_torch, f"{codec}_codec")
 
-    def cascaded_step():
-        with record_function("encode"):
-            comp, sizes = kc.compress(data, lengths, o)
-        with record_function("decode"):
-            kc.decompress(comp, sizes, o, C)
-
-    def lz_step(kern, table):
         def step():
-            with record_function("table"):
-                tbl = table(data, lengths)
-            with record_function("encode"):
-                comp, sizes = kern.encode(data, lengths, tbl)
-            with record_function("decode"):
-                kern.decompress(comp, sizes, C)
-        return step
+            api.decompress(api.compress(batch, opts), C, opts)
 
-    for path, step in (("cascaded", cascaded_step), ("lz4", lz_step(kl, _lz4_table)),
-                       ("snappy", lz_step(ks, _snappy_table))):
-        wall_ms, avg, work = device_work(step, stages)
+        stages = ([f"compress.{codec}.table"] if codec != "cascaded" else []) + [
+            f"compress.{codec}.encode", f"decompress.{codec}.decode"]
+        wall_ms = statistics.median(_host_ms(step)[1] for _ in range(3))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        by_span = _device_ms_by_span(prof, stages)
+        avg = {e.key: e for e in prof.key_averages()}
+        # device work: kernels, copies and fills, not the spans over them nor the profiler's buffers
+        work = {k: e.self_device_time_total / 1e3 for k, e in avg.items()
+                if e.device_type != DeviceType.CPU and not k.startswith(("compress.", "decompress.", "Activity Buffer"))
+                and e.self_device_time_total > 0}
         busy = sum(work.values())
         if busy <= 0:
-            print(f"phase 9 profile {path}: the profiler reported no device time (not measured)", flush=True)
+            print(f"phase 9 profile {codec}: the profiler reported no device time (not measured)", flush=True)
             continue
-        parts = [f"{s} {avg[s].device_time_total / 1e3:.3f} ms" for s in stages if s in avg]
-        names = {"table": "lz_match_table_kernel", "encode": f"{path}_encode_kernel",
-                 "decode": f"{path}_decode_kernel"}
-        kernels = {s: sum(v for k, v in work.items() if names[s] in k) for s in stages}
+        parts = [f"{s} {ms:.3f} ms" for s, ms in by_span.items()]
         top = ", ".join(f"{k[:70]} {v:.3f} ms" for k, v in sorted(work.items(), key=lambda kv: -kv[1])[:6])
-        # fills (torch.zeros of an output): none, as every kernel writes all of its outputs
         fill = sum(v for k, v in work.items() if "fill" in k.lower())
-        print(f"phase 9 profile {path} mixed step: wall {wall_ms:.3f} ms (median of 3, no profiler), "
-              f"device busy {busy:.3f} ms (profiled step), "
-              f"device idle {max(0.0, 1 - busy / wall_ms):.4f}; ranges: {', '.join(parts)}; "
-              f"kernels: " + ", ".join(f"{s} {v:.3f} ms" for s, v in kernels.items() if v or s != "table")
-              + f"; fill kernels in the step {fill:.3f} ms; largest: {top}", flush=True)
+        print(f"phase 9 profile {codec} mixed step: wall {wall_ms:.3f} ms (median of 3, no profiler), "
+              f"device busy {busy:.3f} ms (profiled step), device idle {max(0.0, 1 - busy / wall_ms):.4f}; "
+              f"port spans: {', '.join(parts)}; fill kernels in the step {fill:.3f} ms; largest: {top}",
+              flush=True)
+
+
+def _device_ms_by_span(prof, names) -> dict:
+    """Device ms of the operations launched inside each span named in
+    ``names``, from the profiler's Chrome trace: an operation belongs to
+    every such span that holds the host call that launched it (matched by
+    the profiler's correlation id)."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    finally:
+        os.unlink(path)
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] in names]
+    ms = dict.fromkeys(names, 0.0)
+    for e in events:
+        t = launched.get(e.get("args", {}).get("correlation"))
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and t is not None:
+            for name, t0, t1 in spans:
+                if t0 <= t <= t1:
+                    ms[name] += e["dur"] / 1e3
+    return ms
+
+
+def phase_tracer(corpora):
+    """The port's tracer (tpucomp_torch/utils/profiling.py) on the main paths
+    at 256 MB: with tracing off a round trip of each codec records nothing
+    and makes no counter buffer; under torch.profiler the kernels' counters
+    hold to the streams on both corpora: cascaded.encode.partitions_raw is
+    the partitions whose header has zero layer bytes, the chunks run less
+    those discarded are every chunk of the other partitions, none is
+    discarded on runheavy; lz4.encode.sequences and lz4.decode.sequences
+    both equal the sequences the streams hold, as snappy.encode.sequences
+    and snappy.decode.elements equal the Snappy streams' sequences and
+    elements (_walk_steps).  Returns the counters by corpus."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpucomp_torch
+    from tpucomp_torch.utils import profiling
+
+    apis = {"cascaded": (tpucomp_torch.cascaded_codec, tpucomp_torch.CascadedOpts()),
+            "lz4": (tpucomp_torch.lz4_codec, tpucomp_torch.LZ4Opts()),
+            "snappy": (tpucomp_torch.snappy_codec, tpucomp_torch.SnappyOpts())}
+    result = {}
+    for name, data in corpora.items():
+        batch = tpucomp_torch.ChunkBatch(data, torch.full((B,), C, dtype=torch.int32, device=data.device))
+        profiling.reset()
+        for api, opts in apis.values():
+            api.decompress(api.compress(batch, opts), C, opts)
+        torch.cuda.synchronize()
+        if profiling.spans() or profiling.counters():
+            raise AssertionError(f"phase 23 {name}: tracing off recorded {profiling.counters()}")
+        got = {}
+        for codec, (api, opts) in apis.items():
+            profiling.reset()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                comp = api.compress(batch, opts)
+                data_out, statuses = api.decompress(comp, C, opts)
+                torch.cuda.synchronize()
+            if not torch.equal(data_out.data, data) or statuses.any():
+                raise AssertionError(f"phase 23 {name} {codec}: the traced round trip is not exact")
+            counts = {k: v for k, v in profiling.counters().items() if k.startswith(f"{codec}.")}
+            if codec == "cascaded":
+                head = comp.data[:, :3].to(torch.int64)
+                raw = int(((head[:, 0] | head[:, 1] << 8 | head[:, 2] << 16) == 0).sum())
+                kept = (B - raw) * (C // opts.chunk_size)
+                ran, discarded = counts["cascaded.encode.chunks"], counts["cascaded.encode.chunks_discarded"]
+                ok = (counts["cascaded.encode.partitions_raw"] == raw and ran - discarded == kept
+                      and (name != "runheavy" or discarded == 0))
+                counts["headers_raw"], counts["wasted_chunk_pct"] = raw, 100.0 * discarded / ran
+            else:
+                elements, sequences = (int(x.sum()) for x in _walk_steps(codec, comp.data, comp.lengths))
+                counts["stream_sequences"], counts["stream_elements"] = sequences, elements
+                ok = counts[f"{codec}.encode.sequences"] == sequences and (
+                    counts["lz4.decode.sequences"] == sequences if codec == "lz4"
+                    else counts["snappy.decode.elements"] == elements)
+            if not ok:
+                raise AssertionError(f"phase 23 {name} {codec}: counters do not hold to the streams: {counts}")
+            got[codec] = counts
+        profiling.reset()
+        result[name] = got
+        print(f"phase 23 tracer {name}: off, no record and no counter buffer; on, {json.dumps(got)}", flush=True)
+    return result
 
 
 def _host_ms(fn, *args, **kwargs):
@@ -1536,9 +1634,8 @@ def phase_bench(times, lz4_times, snappy_times, smi):
     an exact round trip and its codec's kernels launched (and no other's),
     the card's name and power limit.  The Cascaded cells hold phase 4-5's
     bytes: a whole call that reads below 0.9 x its kernel's median from
-    phase 5 is an impossible reading and fails.  Then
-    scripts/torch_bench_profile.py (``_bench_profile``).  Returns the
-    bench lines by mode and the profile's result."""
+    phase 5 is an impossible reading and fails.  Returns the bench lines
+    by mode."""
     import torch
 
     lines = {}
@@ -1561,7 +1658,7 @@ def phase_bench(times, lz4_times, snappy_times, smi):
               f"device {dev_info['kind']}, {dev_info['power_limit']}", flush=True)
         _bench_cells(line, times, lz4_times, snappy_times)
     print(f"  phase 21 subprocesses: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return lines, _bench_profile(smi)
+    return lines
 
 
 def _bench_cells(line, times, lz4_times, snappy_times):
@@ -1603,25 +1700,6 @@ def _bench_cells(line, times, lz4_times, snappy_times):
                      f"{r['copy_ms']:.3f} ms ({r['copy_gbps']:.1f} GB/s), the JAX bench's shifted copy "
                      f"{r['memcpy_ms']:.3f} ms ({r['memcpy_gbps']:.1f} GB/s)")
         print(text, flush=True)
-
-
-def _bench_profile(smi):
-    """scripts/torch_bench_profile.py as a subprocess (a process whose
-    profiler has traced nothing before): one torch.profiler window over
-    bench cell's calls, the device's idle share of the whole calls."""
-    proc = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "torch_bench_profile.py")], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise AssertionError(f"torch_bench_profile.py exited {proc.returncode}: {proc.stderr[-3000:]}")
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
-    for cell, r in result["cells"].items():
-        idle = f"{r['idle']:.4f}" if r["idle"] is not None else "not measured (the profiler saw no device time)"
-        top = ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in r["largest"].items())
-        print(f"phase 21 profile of the bench's {cell} calls ({r['corpus']} seed {r['seed']}, one compress and one "
-              f"decompress of 256 MB, scripts/torch_bench_profile.py): wall {r['wall_ms']:.3f} ms (median of 3, "
-              f"no profiler), device busy {r['busy_ms']:.3f} ms, device idle {idle}; largest: {top} | {smi}",
-              flush=True)
-    return result
 
 
 EXAMPLES = ("torch_round_trip.py", "torch_distributed.py")
@@ -1732,6 +1810,7 @@ def main() -> int:
 
     lz4_times, lz4_main_err = phase_lz4_times(corpora)
     phase_profile(corpora)
+    tracer_counts = phase_tracer(corpora)
 
     t0 = time.perf_counter()
     snappy_err, n_snappy, n_snappy_inputs = phase_snappy_matrix(dev)
@@ -1754,7 +1833,7 @@ def main() -> int:
             "multihost": phase_multihost(smi),
             "cli_native": phase_cli_native(corpora, smi)}
     conformance_err, conformance_rows = phase_conformance(dev, counters, paths, smi)
-    bench_lines, bench_idle = phase_bench(times, lz4_times, snappy_times, smi)
+    bench_lines = phase_bench(times, lz4_times, snappy_times, smi)
     examples = phase_examples(smi)
 
     kernels = []
@@ -1816,7 +1895,7 @@ def main() -> int:
           flush=True)
     for mode, line in bench_lines.items():
         print(f"  bench --codec {mode}: {json.dumps(line)}", flush=True)
-    print(f"  bench profile: {json.dumps(bench_idle)}", flush=True)
+    print(f"  tracer counters: {json.dumps(tracer_counts)}", flush=True)
     print(f"  examples: {json.dumps(examples)}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,7 +16,9 @@ one set of macros alone.  Each build's C entry points are called on CPU tensors 
 ``kernels/cascaded_cuda.py`` calls them on the card, into outputs
 pre-filled with a marker byte (every byte must be written), and holds
 rows, sizes, data, byte counts and statuses to ``_compress_plain`` /
-``_decompress_plain`` with tolerance 0: the kernel cases of
+``_decompress_plain`` with tolerance 0, and the encoder's counters
+(``utils/profiling.py``) to the rows it wrote (raw partitions by their
+headers, chunks run outside them by their lengths): the kernel cases of
 tests/torch_cases.py that stay small (the test matrix, the rest of the
 option space, N random option sets and shapes, and the 8-byte profiles
 of ``w8_cases``; not the two 16 MB partitions), each decoded as written,
@@ -66,22 +68,42 @@ def build(src: str, out_dir: str, defines=()):
                     "-I", src, "-include", "emu.h", *[f"-D{d}" for d in defines], "-o", lib, *cpp,
                     os.path.join(HERE, "emu.cpp")], check=True)
     lib = ctypes.CDLL(lib)
-    lib.tc_cascaded_encode.argtypes = [P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P]
+    lib.tc_cascaded_encode.argtypes = [P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P, P]
     lib.tc_cascaded_decode.argtypes = [P, P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P]
     return lib
 
 
-def encode(lib, data, lengths, o):
-    """The encode kernel's (rows, sizes), as kernels/cascaded_cuda.py launches it."""
+def encode(lib, data, lengths, o, counters=None):
+    """The encode kernel's (rows, sizes), as kernels/cascaded_cuda.py launches
+    it; ``counters`` (int64[3]) takes its chunks, chunks discarded and raw
+    partitions."""
     b, c = data.shape
     pmax = cc.partition_output_max(c, o)
     out = torch.full((b, pmax), MARK, dtype=torch.uint8)
     sizes = torch.full((b,), -7, dtype=torch.int32)
     err = lib.tc_cascaded_encode(data.data_ptr(), lengths.data_ptr(), out.data_ptr(), sizes.data_ptr(), b, c,
                                  pmax, width_of(o.type), int(o.type), o.chunk_num_elements,
-                                 max(1, -(-c // o.chunk_size)), o.num_rles, o.num_deltas, int(o.use_bp), None)
+                                 max(1, -(-c // o.chunk_size)), o.num_rles, o.num_deltas, int(o.use_bp),
+                                 None if counters is None else counters.data_ptr(), None)
     assert err == 0
     return out, sizes
+
+
+def counts_wrong(comp, lengths, c, o, counters) -> str:
+    """What differs between the encoder's counters and its rows (of ``c``
+    input bytes): raw partitions are the non-empty ones whose header has
+    zero layer bytes; the chunks run outside them are all their chunks (at
+    most k a partition)."""
+    n_elems = lengths.to(torch.int64).clamp(min=0) // width_of(o.type)
+    layers = comp[:, 0].to(torch.int64) | comp[:, 1].to(torch.int64) << 8 | comp[:, 2].to(torch.int64) << 16
+    raw = (lengths > 0) & (layers == 0)
+    k = max(1, -(-c // o.chunk_size))
+    kept = torch.where(raw, 0, (-(-n_elems // o.chunk_num_elements)).clamp(max=k)).sum()
+    chunks, discarded, partitions_raw = counters.tolist()
+    want = (int(kept) + discarded, int(raw.sum()))
+    if (chunks, partitions_raw) != want or discarded > chunks:
+        return f"counters {counters.tolist()}, rows give chunks - discarded {int(kept)}, raw {want[1]}"
+    return ""
 
 
 def decode(lib, comp, sizes, o, cap):
@@ -152,9 +174,14 @@ def check(args, defines) -> int:
                 o = opts_from_fields(fields)
                 w = torch_cases.WIDTH[fields["type"]]
                 d, ln = torch.from_numpy(arr), torch.from_numpy(lens)
-                comp, sizes = encode(lib, d, ln, o)
+                counters = torch.zeros(3, dtype=torch.int64)
+                comp, sizes = encode(lib, d, ln, o, counters)
                 if not same(f"{label} encode", (comp, sizes), cc._compress_plain(d, ln, o)):
                     continue
+                wrong = counts_wrong(comp, ln, arr.shape[1], o, counters)
+                if wrong:
+                    bad += 1
+                    print(f"MISMATCH {label} encode: {wrong}", flush=True)
                 cap = arr.shape[1] - arr.shape[1] % w
                 decode_both(label, comp, sizes, o, cap)
                 decode_both(f"{label} other-opts", comp, sizes,

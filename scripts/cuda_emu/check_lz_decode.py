@@ -9,7 +9,9 @@ Builds ``lz4_decode.cu`` and ``snappy_decode.cu`` of CSRC_DIR
 (each ``kernel<<<grid, block, ...>>>(args)`` launch is rewritten to the
 emulator's), calls their C entry points on CPU tensors as the wrappers
 call them on the card, and holds data, lengths and statuses to the plain
-versions with tolerance 0: the crafted, golden, foreign and window cases
+versions with tolerance 0, and, on the golden and random batches, the
+decode walks' counters (``utils/profiling.py``) to the sequences or
+elements the streams hold (``lz_streams.py``): the crafted, golden, foreign and window cases
 of tests/torch_{lz4,snappy}_cases.py, garbage batches, a 1 MB Snappy row
 rewritten by start, and N random batches with damaged copies.  The
 emulation checks logic only (no timing, memory model or nvcc); the
@@ -33,6 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 import torch_lz4_cases as lc  # noqa: E402
 import torch_snappy_cases as sc  # noqa: E402
+from lz_streams import stream_counts  # noqa: E402
 from oracles.lz4_oracle import lz4_compress_oracle  # noqa: E402
 from tpucomp_torch.codecs import lz4 as tl  # noqa: E402
 from tpucomp_torch.codecs import snappy as ts  # noqa: E402
@@ -54,8 +57,8 @@ def build(src: str, out_dir: str):
     subprocess.run(["g++", "-std=c++17", "-O2", "-fPIC", "-shared", "-I", os.path.join(HERE, "include"),
                     "-I", src, "-include", "emu.h", "-o", lib, *cpp, os.path.join(HERE, "emu.cpp")], check=True)
     lib = ctypes.CDLL(lib)
-    lib.tc_lz4_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P]
-    lib.tc_snappy_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P, LL, P]
+    lib.tc_lz4_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P, P]
+    lib.tc_snappy_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P, LL, P, P]
     return lib
 
 
@@ -68,7 +71,7 @@ def main():
         lib = build(args.csrc, tmp)
         bad = 0
 
-        def check(codec, comp, sizes, cap, label):
+        def check(codec, comp, sizes, cap, label, counted=False):
             nonlocal bad
             comp = torch.as_tensor(np.ascontiguousarray(comp))
             sizes = torch.as_tensor(np.asarray(sizes, np.int32)).contiguous()
@@ -77,13 +80,14 @@ def main():
             ln = torch.full((b,), -7, dtype=torch.int32)
             st = torch.full((b,), -7, dtype=torch.int32)
             ptrs = (comp.data_ptr(), sizes.data_ptr(), out.data_ptr(), ln.data_ptr(), st.data_ptr(), b, cmax, cap)
+            counter = torch.zeros(1, dtype=torch.int64)
             if codec == "lz4":
-                err = lib.tc_lz4_decode(*ptrs, None)
+                err = lib.tc_lz4_decode(*ptrs, counter.data_ptr(), None)
                 want = tl._decompress_plain(comp, sizes, cap)
             else:
                 slots = max(1, min(-(-b // 32), ks.REWRITE_SCRATCH // cap))
                 scratch = torch.full((slots * cap,), 0x55, dtype=torch.int32)
-                err = lib.tc_snappy_decode(*ptrs, scratch.data_ptr(), slots, None)
+                err = lib.tc_snappy_decode(*ptrs, scratch.data_ptr(), slots, counter.data_ptr(), None)
                 want = ts._decompress_plain(comp, sizes, cap)
             for part, g, w in zip(("data", "lengths", "status"), (out, ln, st), want):
                 if err or not torch.equal(g, w):
@@ -91,6 +95,11 @@ def main():
                     where = (g != w).nonzero()[:4].tolist()
                     print(f"MISMATCH {codec} {label}: {part} differs at {where} (launch error {err})")
                     return
+            if counted:
+                held = stream_counts(codec, comp, sizes, cap)[0]
+                if int(counter) != held:
+                    bad += 1
+                    print(f"MISMATCH {codec} {label}: counted {int(counter)}, the streams hold {held}")
 
         for codec, cases, plain in (("snappy", sc, ts), ("lz4", lc, tl)):
             n0 = bad
@@ -99,7 +108,7 @@ def main():
                     check(codec, comp, sizes, sc.CRAFTED_CAP, "crafted " + ",".join(labels))
                 check(codec, *sc.long_back_row(), "1 MB row rewritten by start")
                 _, comp, sizes, outs = sc.golden_streams()
-                check(codec, comp, sizes, max(map(len, outs)), "golden")
+                check(codec, comp, sizes, max(map(len, outs)), "golden", counted=True)
                 _, comp, sizes, _ = sc.foreign_streams(np.random.default_rng(4))
                 check(codec, comp, sizes, 4096, "foreign")
                 window = sc.window_cases(np.random.default_rng(7))
@@ -116,7 +125,7 @@ def main():
                 arr, lens = cases.random_batch(rng, 6000)[:2]
                 comp, sizes = plain.compress(torch.from_numpy(arr), torch.from_numpy(lens))
                 c = arr.shape[1]
-                check(codec, comp, sizes, c, f"random {seed}")
+                check(codec, comp, sizes, c, f"random {seed}", counted=True)
                 dmg, dmg_sizes = cases.damage(rng, comp.numpy(), sizes.numpy())
                 for cap in (c, int(rng.integers(1, c + 64))):
                     check(codec, dmg, dmg_sizes, cap, f"random {seed} damaged, capacity {cap}")

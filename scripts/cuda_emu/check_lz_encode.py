@@ -10,7 +10,8 @@ of CSRC_DIR (``tpucomp_torch/csrc`` by default) with g++ against
 memory to its static buffer), calls their C entry points on CPU tensors
 as the wrappers call them on the card, and holds the tables to
 ``lz77.match_table`` and the streams to the plain encoders with tolerance
-0: the compress rows (strides 1, 2 and 4), the typed and edge rows, the
+0, and the encoders' sequence counters (``utils/profiling.py``) to the
+sequences the streams hold (``lz_streams.py``): the compress rows (strides 1, 2 and 4), the typed and edge rows, the
 table rows of tests/torch_{lz4,snappy}_cases.py that stay small (window
 edges and collisions at 70 KB, tiny rows, odd capacities) and N random
 batches.  The emulation checks logic only (no timing, memory model or
@@ -34,6 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 import torch_lz4_cases as lc  # noqa: E402
 import torch_snappy_cases as sc  # noqa: E402
+from lz_streams import stream_counts  # noqa: E402
 from tpucomp_torch.codecs import lz4 as tl  # noqa: E402
 from tpucomp_torch.codecs import lz77  # noqa: E402
 from tpucomp_torch.codecs import snappy as ts  # noqa: E402
@@ -59,8 +61,8 @@ def build(src: str, out_dir: str):
     lib = ctypes.CDLL(lib)
     lib.tc_lz_match_table_grid.argtypes = [LL, LL, ctypes.POINTER(LL)]
     lib.tc_lz_match_table.argtypes = [P, P, P, P, LL, LL, I, I, I, I, P]
-    lib.tc_lz4_encode.argtypes = [P, P, P, P, P, LL, LL, LL, P]
-    lib.tc_snappy_encode.argtypes = [P, P, P, P, P, LL, LL, LL, P]
+    lib.tc_lz4_encode.argtypes = [P, P, P, P, P, LL, LL, LL, P, P]
+    lib.tc_snappy_encode.argtypes = [P, P, P, P, P, LL, LL, LL, P, P]
     return lib
 
 
@@ -81,14 +83,16 @@ def table(lib, data, lengths, stride, max_offset, end_margin):
 
 
 def encode(lib, codec, data, lengths, tbl):
+    """(rows, sizes, the sequence counter)."""
     b, c = data.shape
     row = (lz4_max_compressed_chunk_size if codec == "lz4" else snappy_max_compressed_chunk_size)(c)
     out = torch.full((b, row), 0xAB, dtype=torch.uint8)  # bytes the kernel must all write
     sizes = torch.full((b,), -7, dtype=torch.int32)
+    counter = torch.zeros(1, dtype=torch.int64)
     fn = lib.tc_lz4_encode if codec == "lz4" else lib.tc_snappy_encode
     assert fn(data.data_ptr(), lengths.data_ptr(), tbl.data_ptr(), out.data_ptr(), sizes.data_ptr(), b, c, row,
-              None) == 0
-    return out, sizes
+              counter.data_ptr(), None) == 0
+    return out, sizes, int(counter)
 
 
 def main():
@@ -114,7 +118,7 @@ def main():
                 return
             if not streams:
                 return
-            comp, sizes = encode(lib, codec, data, lengths, got)
+            comp, sizes, sequences = encode(lib, codec, data, lengths, got)
             want = (tl._compress_plain(data, lengths, stride) if codec == "lz4"
                     else ts._compress_plain(data, lengths))
             for part, g, w in zip(("rows", "sizes"), (comp, sizes), want):
@@ -123,6 +127,11 @@ def main():
                     where = (g != w).nonzero()[:4].tolist()
                     print(f"MISMATCH {codec} {label} stride {stride}: {part} differ at {where}")
                     return
+            held = stream_counts(codec, comp, sizes, data.shape[1])[1]
+            if sequences != held:
+                bad += 1
+                print(f"MISMATCH {codec} {label} stride {stride}: counted {sequences} sequences, "
+                      f"the streams hold {held}")
 
         for codec, cases in (("lz4", lc), ("snappy", sc)):
             n0 = bad

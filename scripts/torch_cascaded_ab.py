@@ -69,7 +69,7 @@ def build(name, spec, tmp):
     lib = os.path.join(tmp, f"lib{name}.so")
     subprocess.run([nvcc, "-shared", "-o", lib, *objs], check=True)
     lib = ctypes.CDLL(lib)
-    lib.tc_cascaded_encode.argtypes = [P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P]
+    lib.tc_cascaded_encode.argtypes = [P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P, P]
     lib.tc_cascaded_decode.argtypes = [P, P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P]
     return lib
 
@@ -86,7 +86,7 @@ def kernels(lib, data, lengths, o):
 
     def encode(out, sizes):
         err = lib.tc_cascaded_encode(data.data_ptr(), lengths.data_ptr(), out.data_ptr(), sizes.data_ptr(), b, c,
-                                     pmax, *args, stream)
+                                     pmax, *args, None, stream)
         assert err == 0, err
 
     def decode(comp, comp_sizes, out, nbytes, status):

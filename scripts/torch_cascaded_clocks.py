@@ -113,7 +113,7 @@ def build(src, tmp):
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-rdc=true",
                     "-Xcompiler", "-fPIC", "-shared", "-o", lib, *srcs], check=True)
     lib = ctypes.CDLL(lib)
-    lib.tc_cascaded_encode.argtypes = [P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P]
+    lib.tc_cascaded_encode.argtypes = [P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P, P]
     lib.tc_cascaded_decode.argtypes = [P, P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P]
     lib.tc_clocks_take.argtypes = [P]
     return lib

@@ -43,8 +43,8 @@ def build(name, src, out_dir):
         sys.exit(f"{name}: nvcc failed\n{r.stderr[-3000:]}")
     print(name, " | ".join(ln.strip() for ln in r.stderr.splitlines() if "registers" in ln or "spill" in ln))
     lib = ctypes.CDLL(lib)
-    lib.tc_lz4_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P]
-    lib.tc_snappy_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P, LL, P]
+    lib.tc_lz4_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P, P]
+    lib.tc_snappy_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P, LL, P, P]
     return lib
 
 
@@ -73,8 +73,8 @@ def main():
 
                 def run(n):
                     if codec == "lz4":
-                        return libs[n].tc_lz4_decode(*args, stream)
-                    return libs[n].tc_snappy_decode(*args, scratch.data_ptr(), slots, stream)
+                        return libs[n].tc_lz4_decode(*args, None, stream)
+                    return libs[n].tc_snappy_decode(*args, scratch.data_ptr(), slots, None, stream)
 
                 times = {n: [] for n in names}
                 for n in order:

@@ -103,8 +103,8 @@ def main():
             sys.exit(r.stderr[-3000:])
         L = ctypes.CDLL(lib)
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        L.tc_lz4_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P]
-        L.tc_snappy_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P, LL, P]
+        L.tc_lz4_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P, P]
+        L.tc_snappy_decode.argtypes = [P, P, P, P, P, LL, LL, LL, P, LL, P, P]
         L.tc_prof_lz4_decode.argtypes = L.tc_prof_snappy_decode.argtypes = [P, I]
 
         data = torch.from_numpy(np.frombuffer(load_corpus(B * C), np.uint8).reshape(B, C).copy()).cuda()
@@ -127,9 +127,9 @@ def main():
                 e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 e0.record()
                 if codec == "lz4":
-                    err = L.tc_lz4_decode(*args, None)
+                    err = L.tc_lz4_decode(*args, None, None)
                 else:
-                    err = L.tc_snappy_decode(*args, scratch.data_ptr(), 1, None)
+                    err = L.tc_snappy_decode(*args, scratch.data_ptr(), 1, None, None)
                 e1.record()
                 torch.cuda.synchronize()
                 assert err == 0 and torch.equal(out, data[:n]) and not st.any(), codec

@@ -49,7 +49,7 @@ def build(name, src, tmp):
                    check=True)
     lib = ctypes.CDLL(lib)
     for _, _, _, fn in CODECS.values():
-        getattr(lib, fn).argtypes = [P, P, P, P, P, LL, LL, LL, P]
+        getattr(lib, fn).argtypes = [P, P, P, P, P, LL, LL, LL, P, P]
     return lib
 
 
@@ -74,7 +74,7 @@ def main():
 
                     def run(f=getattr(lib, fn), out=out, sizes=sizes):
                         err = f(data.data_ptr(), lengths.data_ptr(), table.data_ptr(), out.data_ptr(),
-                                sizes.data_ptr(), B, C, row, stream)
+                                sizes.data_ptr(), B, C, row, None, stream)
                         assert err == 0, err
                     run()
                     runs[n] = (run, [])

@@ -174,8 +174,7 @@ def test_port_never_imports_jax_or_tpucomp():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/torch_cascaded_ab.py",
                                     "scripts/torch_multicard.py", "tpucomp_torch/bench.py",
-                                    "scripts/torch_bench_profile.py", "examples/torch_round_trip.py",
-                                    "examples/torch_distributed.py"])
+                                    "examples/torch_round_trip.py", "examples/torch_distributed.py"])
 def test_chip_scripts_never_import_the_tpu_bench(script):
     """The card's scripts, the port's bench and its examples take their
     corpora from the port (tpucomp_torch/utils/corpus.py), not from the

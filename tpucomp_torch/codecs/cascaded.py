@@ -38,6 +38,7 @@ from tpucomp_torch.ops import bitpack as bp
 from tpucomp_torch.ops import delta as dl
 from tpucomp_torch.ops import rle as rl
 from tpucomp_torch.utils import bits, permute
+from tpucomp_torch.utils.profiling import span
 
 PARTITION_HEADER = 8
 
@@ -456,14 +457,15 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: CascadedOpts):
     comp_sizes int32[B]).  Lengths that are not a multiple of the element
     width are truncated.  A CPU batch takes the plain formulation, a CUDA
     batch the encode kernel (``config.kernels_enabled``), whatever the
-    element type.
+    element type.  Span ``compress.cascaded``.
     """
-    opts.validate()
-    if not config.kernels_enabled(data.device):
-        return _compress_plain(data, lengths, opts)
-    from tpucomp_torch.kernels import cascaded_cuda
+    with span("compress.cascaded"):
+        opts.validate()
+        if not config.kernels_enabled(data.device):
+            return _compress_plain(data, lengths, opts)
+        from tpucomp_torch.kernels import cascaded_cuda
 
-    return cascaded_cuda.compress(data, lengths, opts)
+        return cascaded_cuda.compress(data, lengths, opts)
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: CascadedOpts, out_capacity: int):
@@ -473,14 +475,16 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: CascadedOpts,
     int32[B]).  Partitions whose stream metadata does not match ``opts``
     (other than the raw fallback) report ERROR_CANNOT_DECOMPRESS.  A CPU
     batch takes the plain formulation, a CUDA batch the decode kernel
-    (``config.kernels_enabled``), whatever the element type.
+    (``config.kernels_enabled``), whatever the element type.  Span
+    ``decompress.cascaded``.
     """
-    opts.validate()
-    if not config.kernels_enabled(comp.device):
-        return _decompress_plain(comp, comp_sizes, opts, out_capacity)
-    from tpucomp_torch.kernels import cascaded_cuda
+    with span("decompress.cascaded"):
+        opts.validate()
+        if not config.kernels_enabled(comp.device):
+            return _decompress_plain(comp, comp_sizes, opts, out_capacity)
+        from tpucomp_torch.kernels import cascaded_cuda
 
-    return cascaded_cuda.decompress(comp, comp_sizes, opts, out_capacity)
+        return cascaded_cuda.decompress(comp, comp_sizes, opts, out_capacity)
 
 
 def detect_opts(comp: torch.Tensor, comp_sizes: torch.Tensor, chunk_size: int | None = None) -> CascadedOpts:

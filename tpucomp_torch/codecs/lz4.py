@@ -38,6 +38,7 @@ from tpucomp_torch.core.options import LZ4Opts
 from tpucomp_torch.core.sizing import lz4_max_compressed_chunk_size
 from tpucomp_torch.core.types import Status, width_of
 from tpucomp_torch.utils import permute
+from tpucomp_torch.utils.profiling import span
 
 MIN_MATCH = 4
 LAST_LITERALS = 5  # the last 5 bytes of a block are literals
@@ -223,21 +224,23 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: LZ4Opts | None = N
     ``lz4_max_compressed_chunk_size(C)``; an empty row compresses to 0
     bytes.  ``opts.data_type`` sets the match granularity (``opts=None``:
     bytes).  A CPU batch takes the plain formulation, a CUDA batch the
-    match-table and encode kernels (``config.kernels_enabled``).
+    match-table and encode kernels (``config.kernels_enabled``).  Span
+    ``compress.lz4``, the parent of ``compress.lz4.table``.
     """
-    stride = _stride(opts)
-    if data.dtype != torch.uint8 or data.dim() != 2:
-        raise ValueError("data must be uint8[B, C]")
-    if data.shape[1] == 0:
-        raise ValueError("data must have at least one column (C > 0)")
-    lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
-    if not config.kernels_enabled(data.device):
-        return _compress_plain(data, lengths, stride)
-    from tpucomp_torch.kernels import lz4_cuda, lz77_cuda
+    with span("compress.lz4"):
+        stride = _stride(opts)
+        if data.dtype != torch.uint8 or data.dim() != 2:
+            raise ValueError("data must be uint8[B, C]")
+        if data.shape[1] == 0:
+            raise ValueError("data must have at least one column (C > 0)")
+        lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
+        if not config.kernels_enabled(data.device):
+            return _compress_plain(data, lengths, stride)
+        from tpucomp_torch.kernels import lz4_cuda, lz77_cuda
 
-    data = data.contiguous()
-    table = lz77_cuda.match_table(data, lengths, stride, lz77.MAX_OFFSET, lz77.LAST_VALID_MATCH)
-    return lz4_cuda.encode(data, lengths, table)
+        data = data.contiguous()
+        table = lz77_cuda.match_table(data, lengths, stride, lz77.MAX_OFFSET, lz77.LAST_VALID_MATCH)
+        return lz4_cuda.encode(data, lengths, table)
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: LZ4Opts | None = None,
@@ -249,17 +252,19 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: LZ4Opts | Non
     ``out_capacity``, gives a zero row, length 0 and
     ERROR_CANNOT_DECOMPRESS.  ``opts`` is not read (streams are
     self-delimiting).  A CPU batch takes the plain formulation, a CUDA
-    batch the decode kernel (``config.kernels_enabled``).
+    batch the decode kernel (``config.kernels_enabled``).  Span
+    ``decompress.lz4``.
     """
-    if comp.dtype != torch.uint8 or comp.dim() != 2:
-        raise ValueError("comp must be uint8[B, CMAX]")
-    if out_capacity < 1:
-        raise ValueError("out_capacity must be at least 1")
-    if not config.kernels_enabled(comp.device):
-        return _decompress_plain(comp, comp_sizes, out_capacity)
-    from tpucomp_torch.kernels import lz4_cuda
+    with span("decompress.lz4"):
+        if comp.dtype != torch.uint8 or comp.dim() != 2:
+            raise ValueError("comp must be uint8[B, CMAX]")
+        if out_capacity < 1:
+            raise ValueError("out_capacity must be at least 1")
+        if not config.kernels_enabled(comp.device):
+            return _decompress_plain(comp, comp_sizes, out_capacity)
+        from tpucomp_torch.kernels import lz4_cuda
 
-    return lz4_cuda.decompress(comp, comp_sizes, out_capacity)
+        return lz4_cuda.decompress(comp, comp_sizes, out_capacity)
 
 
 def get_decompress_size(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: LZ4Opts | None = None,

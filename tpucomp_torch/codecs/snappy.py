@@ -38,6 +38,7 @@ from tpucomp_torch.core.options import SnappyOpts
 from tpucomp_torch.core.sizing import snappy_max_compressed_chunk_size
 from tpucomp_torch.core.types import Status
 from tpucomp_torch.utils import permute
+from tpucomp_torch.utils.profiling import span
 
 MAX_OFFSET = 32768  # the encoder's window (reference src/snappy/config.h:91)
 MIN_MATCH = 4
@@ -269,20 +270,22 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: SnappyOpts | None 
     (comp uint8[B, SNAPPYMAX], comp_sizes int32[B]), SNAPPYMAX =
     ``snappy_max_compressed_chunk_size(C)``.  ``opts`` is reserved.  A CPU
     batch takes the plain formulation, a CUDA batch the match-table and
-    encode kernels (``config.kernels_enabled``).
+    encode kernels (``config.kernels_enabled``).  Span ``compress.snappy``,
+    the parent of ``compress.snappy.table``.
     """
-    if data.dtype != torch.uint8 or data.dim() != 2:
-        raise ValueError("data must be uint8[B, C]")
-    if data.shape[1] == 0:
-        raise ValueError("data must have at least one column (C > 0)")
-    lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
-    if not config.kernels_enabled(data.device):
-        return _compress_plain(data, lengths)
-    from tpucomp_torch.kernels import lz77_cuda, snappy_cuda
+    with span("compress.snappy"):
+        if data.dtype != torch.uint8 or data.dim() != 2:
+            raise ValueError("data must be uint8[B, C]")
+        if data.shape[1] == 0:
+            raise ValueError("data must have at least one column (C > 0)")
+        lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
+        if not config.kernels_enabled(data.device):
+            return _compress_plain(data, lengths)
+        from tpucomp_torch.kernels import lz77_cuda, snappy_cuda
 
-    data = data.contiguous()
-    table = lz77_cuda.match_table(data, lengths, 1, MAX_OFFSET, MIN_MATCH)
-    return snappy_cuda.encode(data, lengths, table)
+        data = data.contiguous()
+        table = lz77_cuda.match_table(data, lengths, 1, MAX_OFFSET, MIN_MATCH)
+        return snappy_cuda.encode(data, lengths, table)
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: SnappyOpts | None = None,
@@ -294,16 +297,18 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: SnappyOpts | 
     ``out_capacity``, gives a zero row, length 0 and
     ERROR_CANNOT_DECOMPRESS.  ``opts`` is reserved.  A CPU batch takes the
     plain formulation, a CUDA batch the decode kernel (``config.kernels_enabled``).
+    Span ``decompress.snappy``.
     """
-    if comp.dtype != torch.uint8 or comp.dim() != 2:
-        raise ValueError("comp must be uint8[B, CMAX]")
-    if out_capacity < 1:
-        raise ValueError("out_capacity must be at least 1")
-    if not config.kernels_enabled(comp.device):
-        return _decompress_plain(comp, comp_sizes, out_capacity)
-    from tpucomp_torch.kernels import snappy_cuda
+    with span("decompress.snappy"):
+        if comp.dtype != torch.uint8 or comp.dim() != 2:
+            raise ValueError("comp must be uint8[B, CMAX]")
+        if out_capacity < 1:
+            raise ValueError("out_capacity must be at least 1")
+        if not config.kernels_enabled(comp.device):
+            return _decompress_plain(comp, comp_sizes, out_capacity)
+        from tpucomp_torch.kernels import snappy_cuda
 
-    return snappy_cuda.decompress(comp, comp_sizes, out_capacity)
+        return snappy_cuda.decompress(comp, comp_sizes, out_capacity)
 
 
 def get_decompress_size(comp: torch.Tensor, comp_sizes: torch.Tensor,

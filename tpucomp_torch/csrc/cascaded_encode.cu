@@ -52,6 +52,13 @@
 //   CTA encodes the partition's chunks in order and writes them straight
 //   into the row, whose offsets it then knows ("direct" mode).
 //
+// Counters (tpucomp_torch/utils/profiling.py): where `counters` is not
+// null, each team adds the chunks it ran through the pipeline to
+// counters[0] at the partition's end, and to counters[1] too when the
+// partition then fell back raw (those chunks were encoded and thrown
+// away); each non-empty partition stored raw adds 1 to counters[2].  Null
+// (tracing off) costs a branch a team and a partition.
+//
 // Elements are held in 32-bit units for widths 1, 2 and 4 and in 64-bit
 // units for 8 (LONGLONG / ULONGLONG): each kernel is instantiated for
 // both, and the 64-bit one follows tpucomp's XLA path for w = 8 (16-byte
@@ -74,6 +81,7 @@ struct EncodeParams {
   int width, dtype, elems, k, nr, nd, bp;
   int slots, parts;                       // TeamPlan
   int arr_words, ends_words, stage_words;  // a team's workspace; stage_words 0: direct
+  unsigned long long* counters;  // chunks, chunks discarded, raw partitions; null: count nothing
 };
 
 // Unsigned element at element index gi of an input row; bytes past the
@@ -425,6 +433,7 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_encode_kernel(EncodeP
   const long long nchunks = min((long long)p.k, (n_elems + e - 1) / e);
   bool fallback = p.nr == 0 && p.nd == 0 && !p.bp;
   long long carry = kPartitionHeader;  // the running offset: 8 + the totals so far
+  unsigned long long ran = 0;           // chunks this team ran through the pipeline
 
   for (long long r = 0;; ++r) {
     const long long c = r * p.slots + s;
@@ -432,6 +441,7 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_encode_kernel(EncodeP
     if (!__syncthreads_or(active)) break;
     Staged st{0, 0, nullptr};
     if (active) {
+      ++ran;
       const int cn = (int)min((long long)e, n_elems - c * e);
       if (kDirect)  // one team per partition: the chunk's place is known
         st = encode_chunk<U, true>(p, in, c * e, cn, A, B, ends, reinterpret_cast<uint32_t*>(o + carry),
@@ -459,6 +469,11 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_encode_kernel(EncodeP
     }
   }
 
+  if (p.counters && lane == 0 && ran) {
+    atomicAdd(p.counters, ran);
+    if (fallback) atomicAdd(p.counters + 1, ran);
+  }
+
   // the partition's teams write the rest of its row: header, raw copy or
   // nothing, then zeros up to PMAX
   if (!mine) return;
@@ -470,6 +485,7 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_encode_kernel(EncodeP
   }
   long long end = min(carry, p.pmax);
   if (fallback) {  // raw elements at byte 8
+    if (p.counters && tid == 0) atomicAdd(p.counters + 2, 1ULL);
     const long long ncopy = min(input_bytes, p.row_bytes);
     copy_bytes(o + kPartitionHeader, in, ncopy, tid, nth);
     end = kPartitionHeader + ncopy;
@@ -508,7 +524,8 @@ int launch_encode(const EncodeParams& p, const TeamPlan& plan, cudaStream_t st) 
 
 extern "C" int tc_cascaded_encode(const void* data, const void* lengths, void* out, void* sizes,
                                   long long batch, long long row_bytes, long long pmax, int width,
-                                  int dtype, int elems, int k, int nr, int nd, int bp, void* stream) {
+                                  int dtype, int elems, int k, int nr, int nd, int bp, void* counters,
+                                  void* stream) {
   using namespace tpucomp;
   // a team's workspace: two element arrays (4-byte units, 8-byte for
   // w = 8), the u16 run ends, the staging area (metadata, nr count blobs
@@ -528,7 +545,7 @@ extern "C" int tc_cascaded_encode(const void* data, const void* lengths, void* o
   const EncodeParams p{static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
                        static_cast<uint8_t*>(out), static_cast<int32_t*>(sizes), batch, row_bytes, pmax,
                        width, dtype, elems, k, nr, nd, bp, plan.slots, plan.parts, (int)arr_words,
-                       (int)ends_words, (int)stage_words};
+                       (int)ends_words, (int)stage_words, static_cast<unsigned long long*>(counters)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide) return direct ? launch_encode<unsigned long long, true>(p, plan, st)
                           : launch_encode<unsigned long long, false>(p, plan, st);

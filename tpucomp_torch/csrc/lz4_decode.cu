@@ -48,6 +48,10 @@
 // last recorded match periodically up to its length.  The kernel writes
 // every byte of the output row: zeros past the length, and across a row
 // that fails.
+//
+// Where `sequences` is not null (tracing on, tpucomp_torch/utils/
+// profiling.py), each row adds the sequences its walk completed (all of
+// them when it decodes); null costs a branch a row.
 
 #include <climits>
 
@@ -68,6 +72,7 @@ struct DecodeParams {
   int32_t* lengths;
   int32_t* status;
   long long batch, row_bytes, out_capacity;
+  unsigned long long* sequences;  // the tracer's counter (profiling.py); null: count nothing
 };
 
 __device__ __forceinline__ int next_in_row(int i, int c) { return i + 1 == c ? 0 : i + 1; }
@@ -294,6 +299,7 @@ __global__ void __launch_bounds__(kThreads, 8) lz4_decode_kernel(DecodeParams P)
   if (lane == 0) {
     P.lengths[b] = n;
     P.status[b] = ok ? kStatusSuccess : kStatusCannotDecompress;
+    if (P.sequences && step) atomicAdd(P.sequences, (unsigned long long)step);
   }
 }
 
@@ -304,11 +310,12 @@ __global__ void __launch_bounds__(kThreads, 8) lz4_decode_kernel(DecodeParams P)
 // success).  Rows below 2**30 bytes (the wrapper checks).
 extern "C" int tc_lz4_decode(const void* comp, const void* comp_sizes, void* out, void* lengths,
                              void* status, long long batch, long long row_bytes,
-                             long long out_capacity, void* stream) {
+                             long long out_capacity, void* sequences, void* stream) {
   using namespace tpucomp_lz4;
   DecodeParams p{static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_sizes),
                  static_cast<uint8_t*>(out),         static_cast<int32_t*>(lengths),
-                 static_cast<int32_t*>(status),      batch, row_bytes, out_capacity};
+                 static_cast<int32_t*>(status),      batch, row_bytes, out_capacity,
+                 static_cast<unsigned long long*>(sequences)};
   // shared memory over L1, so 8 CTAs fit an SM; set on every launch, for
   // the function's attributes are per device
   const cudaError_t carve = cudaFuncSetAttribute(lz4_decode_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,

@@ -151,12 +151,13 @@ __device__ __forceinline__ void fill_runs(uint8_t* out, int at, int len, int v, 
 // literals [lit, lit + ll), then a match of m bytes at distance off); the
 // final batch ends with the literals-only sequence [a, n) (m = 0).
 // Candidates lie at most at n - end_margin (the table holds none past it);
-// a match ends at most at n - tail.  Warp-collective.
+// a match ends at most at n - tail.  Returns the sequences emitted, the
+// last included, in every lane.  Warp-collective.
 template <class Emit>
-__device__ __forceinline__ void encode_walk(const uint8_t* d, const uint16_t* table, int n, int end_margin,
-                                            int tail, int lane, Emit& emit) {
+__device__ __forceinline__ int encode_walk(const uint8_t* d, const uint16_t* table, int n, int end_margin,
+                                           int tail, int lane, Emit& emit) {
   const int last = n - end_margin;
-  int a = 0, cnt = 0;
+  int a = 0, cnt = 0, emitted = 0;
   int s_lit = 0, s_ll = 0, s_off = 0, s_m = 0;
   bool empty = false;  // the last 32 positions held no candidate
   for (int base = 0; base <= last;) {
@@ -193,6 +194,7 @@ __device__ __forceinline__ void encode_walk(const uint8_t* d, const uint16_t* ta
       a = q + m;
       if (++cnt == 32) {
         emit(s_lit, s_ll, s_off, s_m, 32, false);
+        emitted += 32;
         cnt = 0;
       }
       if (a - base >= 32) break;
@@ -206,6 +208,7 @@ __device__ __forceinline__ void encode_walk(const uint8_t* d, const uint16_t* ta
     s_m = 0;
   }
   emit(s_lit, s_ll, s_off, s_m, cnt + 1, true);
+  return emitted + cnt + 1;
 }
 
 }  // namespace tpucomp_lze

@@ -79,6 +79,10 @@
 // statuses.  Two recorded elements with one start have no defined result
 // in the JAX package (its scatter has duplicate indices); here the later
 // one in the stream owns the start.
+//
+// Where `elements` is not null (tracing on, tpucomp_torch/utils/
+// profiling.py), each row adds the elements the decode walk completed;
+// null costs a branch a row.
 
 #include "lz_decode_common.cuh"
 
@@ -98,6 +102,7 @@ struct DecodeParams {
   int32_t* lengths;
   int32_t* status;
   long long batch, row_bytes, out_capacity;
+  unsigned long long* elements;  // the tracer's counter (profiling.py); null: count nothing
 };
 
 // Table entry of a tag.  x: bits 0-7 the length (a literal with extra
@@ -331,6 +336,7 @@ __global__ void __launch_bounds__(kThreads, 8) snappy_decode_kernel(DecodeParams
   if (lane == 0) {
     P.lengths[b] = ok ? o : 0;
     P.status[b] = by_start ? kStatusPending : ok ? kStatusSuccess : kStatusCannotDecompress;
+    if (P.elements && step) atomicAdd(P.elements, (unsigned long long)step);
   }
 }
 
@@ -365,11 +371,12 @@ __global__ void __launch_bounds__(32) snappy_rewrite_kernel(DecodeParams P, int3
 extern "C" int tc_snappy_decode(const void* comp, const void* comp_sizes, void* out,
                                 void* lengths, void* status, long long batch,
                                 long long row_bytes, long long out_capacity, void* scratch,
-                                long long slots, void* stream) {
+                                long long slots, void* elements, void* stream) {
   using namespace tpucomp_snappy;
   DecodeParams p{static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_sizes),
                  static_cast<uint8_t*>(out),         static_cast<int32_t*>(lengths),
-                 static_cast<int32_t*>(status),      batch, row_bytes, out_capacity};
+                 static_cast<int32_t*>(status),      batch, row_bytes, out_capacity,
+                 static_cast<unsigned long long*>(elements)};
   // shared memory over L1, so 8 CTAs fit an SM; set on every launch, for
   // the function's attributes are per device
   const cudaError_t carve = cudaFuncSetAttribute(snappy_decode_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,

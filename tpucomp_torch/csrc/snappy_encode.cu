@@ -36,6 +36,10 @@
 //
 // Covers chunks up to 16 MB (a literal header holds at most 2**24 bytes;
 // positions fit int32).
+//
+// Where `sequences` is not null (tracing on, tpucomp_torch/utils/
+// profiling.py), each chunk adds the sequences its walk emitted, the last
+// literals-only one included; null costs a branch a chunk.
 
 #include "lz_encode_common.cuh"
 
@@ -53,6 +57,7 @@ struct EncodeParams {
   uint8_t* out;
   int32_t* sizes;
   long long batch, row_bytes, out_row;
+  unsigned long long* sequences;  // the tracer's counter (profiling.py); null: count nothing
 };
 
 // Writes batches of sequences at out[o...] (see encode_walk): each as a
@@ -135,9 +140,12 @@ __global__ void __launch_bounds__(kThreads) snappy_encode_kernel(EncodeParams p)
     ++emit.o;
     if (v < 128) break;
   }
-  if (n > 0) encode_walk(d, p.table + b * p.row_bytes, n, kMinMatch, 0, lane, emit);
+  const int seqs = n > 0 ? encode_walk(d, p.table + b * p.row_bytes, n, kMinMatch, 0, lane, emit) : 0;
   zero_fill(emit.out, emit.o, (int)p.out_row, lane);
-  if (lane == 0) p.sizes[b] = (int32_t)emit.o;
+  if (lane == 0) {
+    p.sizes[b] = (int32_t)emit.o;
+    if (p.sequences && seqs) atomicAdd(p.sequences, (unsigned long long)seqs);
+  }
 }
 
 }  // namespace
@@ -147,11 +155,12 @@ __global__ void __launch_bounds__(kThreads) snappy_encode_kernel(EncodeParams p)
 // success).
 extern "C" int tc_snappy_encode(const void* data, const void* lengths, const void* table, void* out,
                                 void* sizes, long long batch, long long row_bytes, long long out_row,
-                                void* stream) {
+                                void* sequences, void* stream) {
   using namespace tpucomp_snappy;
   EncodeParams p{static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
                  static_cast<const uint16_t*>(table), static_cast<uint8_t*>(out),
-                 static_cast<int32_t*>(sizes), batch, row_bytes, out_row};
+                 static_cast<int32_t*>(sizes), batch, row_bytes, out_row,
+                 static_cast<unsigned long long*>(sequences)};
   const unsigned blocks = (unsigned)((batch + kWarpsPerBlock - 1) / kWarpsPerBlock);
   snappy_encode_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();

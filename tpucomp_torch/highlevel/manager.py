@@ -20,6 +20,13 @@ host input; ``decompress`` likewise.  Placement indices are int64, so
 artifacts of 1 GiB and more need no switch.  The codecs route by device:
 a CUDA artifact goes through the kernels, a CPU one through the plain
 versions.
+
+Spans of the port's tracer (``utils/profiling.py``): ``compress.manager``
+with ``.stage`` (flatten, pad, lengths) and ``.assemble``
+(``_assemble_artifact`` and its size read, timed on the device's clock);
+``decompress.manager.open`` (``create_manager``'s header read); and
+``decompress.manager`` with ``.read_header`` and ``.slice``
+(``_slice_streams``, timed on the device's clock).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from tpucomp_torch.core.sizing import (
 )
 from tpucomp_torch.highlevel import headers as hdr
 from tpucomp_torch.utils import permute
+from tpucomp_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -154,21 +162,24 @@ class Manager:
 
         ``data``: bytes, a numpy array, a sequence of byte values or a
         tensor.  Returns (artifact uint8[max_size], actual_size)."""
-        flat = _flat_bytes(data, self.device)
-        n = flat.numel()
-        cfg = self.configure_compression(n)
-        cs, k = self.uncomp_chunk_size, cfg.num_chunks
-        padded = torch.zeros(k * cs, dtype=torch.uint8, device=flat.device)
-        padded[:n] = flat
-        lengths = (n - torch.arange(k, device=flat.device) * cs).clamp(0, cs).to(torch.int32)
-        comp, sizes = self._codec_compress(padded.view(k, cs), lengths)
-        data_off = hdr.data_region_offset(self.format_id, k)
-        common = hdr.CommonHeader(format=self.format_id, comp_data_size=0, decomp_data_size=n,
-                                  num_chunks=k, uncomp_chunk_size=cs, comp_data_offset=data_off)
-        return _assemble_artifact(
-            comp, sizes, common.pack() + hdr.pack_format_spec(self.format_id, self.opts),
-            data_off=data_off, sections_off=hdr.sections_offset(self.format_id),
-            out_max=cfg.max_compressed_buffer_size)
+        with span("compress.manager"):
+            with span("compress.manager.stage"):
+                flat = _flat_bytes(data, self.device)
+                n = flat.numel()
+                cfg = self.configure_compression(n)
+                cs, k = self.uncomp_chunk_size, cfg.num_chunks
+                padded = torch.zeros(k * cs, dtype=torch.uint8, device=flat.device)
+                padded[:n] = flat
+                lengths = (n - torch.arange(k, device=flat.device) * cs).clamp(0, cs).to(torch.int32)
+            comp, sizes = self._codec_compress(padded.view(k, cs), lengths)
+            data_off = hdr.data_region_offset(self.format_id, k)
+            common = hdr.CommonHeader(format=self.format_id, comp_data_size=0, decomp_data_size=n,
+                                      num_chunks=k, uncomp_chunk_size=cs, comp_data_offset=data_off)
+            with span("compress.manager.assemble", device=comp.device):
+                return _assemble_artifact(
+                    comp, sizes, common.pack() + hdr.pack_format_spec(self.format_id, self.opts),
+                    data_off=data_off, sections_off=hdr.sections_offset(self.format_id),
+                    out_max=cfg.max_compressed_buffer_size)
 
     def configure_decompression(self, artifact) -> DecompressionConfig:
         common = hdr.CommonHeader.unpack(_head(artifact, hdr.COMMON_HEADER_SIZE))
@@ -176,13 +187,16 @@ class Manager:
 
     def decompress(self, artifact):
         """Returns (data uint8[decomp_size], statuses int32[num_chunks])."""
-        artifact = _flat_bytes(artifact, self.device)
-        common = hdr.CommonHeader.unpack(_head(artifact, hdr.COMMON_HEADER_SIZE))
-        cs = common.uncomp_chunk_size
-        rows, sizes = _slice_streams(artifact, common, hdr.sections_offset(self.format_id),
-                                     self._max_comp_chunk_size(cs))
-        out, _, statuses = self._codec_decompress(rows, sizes, cs)
-        return out.reshape(-1)[: common.decomp_data_size], statuses
+        with span("decompress.manager"):
+            artifact = _flat_bytes(artifact, self.device)
+            with span("decompress.manager.read_header"):
+                common = hdr.CommonHeader.unpack(_head(artifact, hdr.COMMON_HEADER_SIZE))
+            cs = common.uncomp_chunk_size
+            with span("decompress.manager.slice", device=artifact.device):
+                rows, sizes = _slice_streams(artifact, common, hdr.sections_offset(self.format_id),
+                                             self._max_comp_chunk_size(cs))
+            out, _, statuses = self._codec_decompress(rows, sizes, cs)
+            return out.reshape(-1)[: common.decomp_data_size], statuses
 
     def get_compressed_output_size(self, artifact) -> int:
         common = hdr.CommonHeader.unpack(_head(artifact, hdr.COMMON_HEADER_SIZE))
@@ -263,9 +277,10 @@ def create_manager(artifact, device=None) -> Manager:
     """The manager of a self-describing artifact, from its first 64 + 24
     bytes.  The manager works on the artifact's device (a tensor's own,
     else ``device``, default ``"cuda"``)."""
-    head = _head(artifact, hdr.COMMON_HEADER_SIZE + 24)
-    common = hdr.CommonHeader.unpack(head[: hdr.COMMON_HEADER_SIZE])
-    opts = hdr.unpack_format_spec(common.format, head[hdr.COMMON_HEADER_SIZE :])
+    with span("decompress.manager.open"):
+        head = _head(artifact, hdr.COMMON_HEADER_SIZE + 24)
+        common = hdr.CommonHeader.unpack(head[: hdr.COMMON_HEADER_SIZE])
+        opts = hdr.unpack_format_spec(common.format, head[hdr.COMMON_HEADER_SIZE :])
     if device is None:
         device = artifact.device if isinstance(artifact, torch.Tensor) else "cuda"
     return _MANAGERS[common.format](common.uncomp_chunk_size, opts, device)

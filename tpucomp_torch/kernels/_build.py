@@ -4,7 +4,9 @@ All ``tpucomp_torch/csrc/*.cu`` sources are compiled by ``nvcc`` for
 Hopper (``sm_90a``), one ``nvcc`` process per source, all started
 together, and linked into one shared library with a plain C interface,
 ``tpucomp_torch/_build/libtpucomp_kernels-<hash>.so``, at first use, and
-loaded with ``ctypes``; ``ptxas``'s report of each kernel's registers and
+loaded with ``ctypes``.  The kernels that count (``utils/profiling.py``)
+take the address of their counters as the argument before the stream, null
+while tracing is off.  ``ptxas``'s report of each kernel's registers and
 shared memory goes beside it, into ``<hash>.log``.  The hash covers every source and header, so a
 changed source builds anew.  A missing ``nvcc`` or a failed build raises
 with the compiler's output; nothing degrades silently.
@@ -35,8 +37,8 @@ _L = ctypes.c_longlong
 # name -> argtypes of each C entry point
 SIGNATURES = {
     # data, lengths, out, sizes, batch, row_bytes, pmax, width, dtype, elems,
-    # k, nr, nd, bp, stream
-    "tc_cascaded_encode": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P],
+    # k, nr, nd, bp, counters, stream
+    "tc_cascaded_encode": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # comp, comp_sizes, out, out_bytes, status, batch, row_bytes,
     # out_capacity, width, dtype, elems, k, nr, nd, bp, stream
     "tc_cascaded_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -44,14 +46,15 @@ SIGNATURES = {
     "tc_lz_match_table_grid": [_L, _L, ctypes.POINTER(_L)],
     # data, lengths, out, scratch, batch, row_bytes, stride, max_offset, end_margin, grid, stream
     "tc_lz_match_table": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
-    # data, lengths, table, out, sizes, batch, row_bytes, out_row, stream
-    "tc_lz4_encode": [_P, _P, _P, _P, _P, _L, _L, _L, _P],
-    # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity, stream
-    "tc_lz4_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P],
-    # data, lengths, table, out, sizes, batch, row_bytes, out_row, stream
-    "tc_snappy_encode": [_P, _P, _P, _P, _P, _L, _L, _L, _P],
-    # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity, stream
-    "tc_snappy_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _P],
+    # data, lengths, table, out, sizes, batch, row_bytes, out_row, counter, stream
+    "tc_lz4_encode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _P],
+    # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity, counter, stream
+    "tc_lz4_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _P],
+    # data, lengths, table, out, sizes, batch, row_bytes, out_row, counter, stream
+    "tc_snappy_encode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _P],
+    # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity,
+    # scratch, slots, counter, stream
+    "tc_snappy_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _P, _P],
 }
 
 

@@ -21,6 +21,13 @@ kernel that rewrites, by start, the rows whose output goes back (only
 crafted streams have them), with an int32 scratch of ``out_capacity``
 entries a row, for up to ``REWRITE_SCRATCH // out_capacity`` rows at
 once.  ``LAUNCHES`` counts the launches of each wrapper.
+
+Spans (``utils/profiling.py``): ``compress.snappy.encode`` and
+``decompress.snappy.decode``, each with a ``.launch`` child around the
+foreign call alone.  Each kernel takes one more argument, the address of
+the tracer's ``snappy.encode.sequences`` or ``snappy.decode.elements``
+counter; it is null while tracing is off, and the kernel then counts
+nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import torch
 
 from tpucomp_torch.core.sizing import snappy_max_compressed_chunk_size
 from tpucomp_torch.kernels import _build
+from tpucomp_torch.utils import profiling
+from tpucomp_torch.utils.profiling import span
 
 LAUNCHES = {"encode": 0, "decode": 0}
 # The int32 scratch the decode gives its rewrite by start, in entries: one
@@ -54,60 +63,68 @@ def encode(data: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
     match table with the Snappy limits (``lz77_cuda.match_table``),
     uint16[B, C], on one CUDA device -> (comp uint8[B, SNAPPYMAX],
     comp_sizes int32[B])."""
-    _check(data, lengths, table)
-    if data.dtype != torch.uint8 or data.dim() != 2:
-        raise ValueError("data must be uint8[B, C]")
-    b, c = data.shape
-    if c > 1 << 24:  # a literal header holds lengths of at most 2**24 bytes
-        raise ValueError("the Snappy encode kernel takes chunks of at most 16 MB")
-    if table.dtype != torch.uint16 or tuple(table.shape) != (b, c):
-        raise ValueError(f"table must be uint16[{b}, {c}]")
-    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
-        raise ValueError(f"lengths must be int32[{b}]")
-    data, lengths, table = (t.contiguous() for t in (data, lengths, table))
-    out_row = snappy_max_compressed_chunk_size(c)
-    out = torch.empty(b, out_row, dtype=torch.uint8, device=data.device)  # the kernel writes every byte
-    sizes = torch.empty(b, dtype=torch.int32, device=data.device)
-    if b == 0:
+    with span("compress.snappy.encode"):
+        _check(data, lengths, table)
+        if data.dtype != torch.uint8 or data.dim() != 2:
+            raise ValueError("data must be uint8[B, C]")
+        b, c = data.shape
+        if c > 1 << 24:  # a literal header holds lengths of at most 2**24 bytes
+            raise ValueError("the Snappy encode kernel takes chunks of at most 16 MB")
+        if table.dtype != torch.uint16 or tuple(table.shape) != (b, c):
+            raise ValueError(f"table must be uint16[{b}, {c}]")
+        if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
+            raise ValueError(f"lengths must be int32[{b}]")
+        data, lengths, table = (t.contiguous() for t in (data, lengths, table))
+        out_row = snappy_max_compressed_chunk_size(c)
+        out = torch.empty(b, out_row, dtype=torch.uint8, device=data.device)  # the kernel writes every byte
+        sizes = torch.empty(b, dtype=torch.int32, device=data.device)
+        if b == 0:
+            return out, sizes
+        with torch.cuda.device(data.device):
+            counter = profiling.counter_ptr("snappy.encode.sequences", data.device)
+            lib = _build.load()
+            with span(".launch"):
+                err = lib.tc_snappy_encode(
+                    data.data_ptr(), lengths.data_ptr(), table.data_ptr(), out.data_ptr(), sizes.data_ptr(),
+                    b, c, out_row, counter, torch.cuda.current_stream(data.device).cuda_stream,
+                )
+        _raise_if(err, "encode")
+        LAUNCHES["encode"] += 1
         return out, sizes
-    with torch.cuda.device(data.device):
-        err = _build.load().tc_snappy_encode(
-            data.data_ptr(), lengths.data_ptr(), table.data_ptr(), out.data_ptr(), sizes.data_ptr(),
-            b, c, out_row, torch.cuda.current_stream(data.device).cuda_stream,
-        )
-    _raise_if(err, "encode")
-    LAUNCHES["encode"] += 1
-    return out, sizes
 
 
 def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, out_capacity: int):
     """Decode kernel: comp uint8[B, CMAX], comp_sizes int32[B] on one CUDA
     device -> (data uint8[B, out_capacity], lengths int32[B], statuses
     int32[B])."""
-    _check(comp, comp_sizes)
-    if comp.dtype != torch.uint8 or comp.dim() != 2 or comp.shape[1] < 1:
-        raise ValueError("comp must be uint8[B, CMAX] with CMAX >= 1")
-    if not 1 <= out_capacity < 2**31:
-        raise ValueError("out_capacity must be in [1, 2**31)")
-    b, cmax = comp.shape
-    if cmax >= 2**30:
-        raise ValueError("the decode kernel takes rows below 2**30 bytes")
-    comp = comp.contiguous()
-    comp_sizes = comp_sizes.to(torch.int32).contiguous()
-    out = torch.empty(b, out_capacity, dtype=torch.uint8, device=comp.device)  # the kernels write every byte
-    lengths = torch.empty(b, dtype=torch.int32, device=comp.device)
-    status = torch.empty(b, dtype=torch.int32, device=comp.device)
-    if b == 0:
+    with span("decompress.snappy.decode"):
+        _check(comp, comp_sizes)
+        if comp.dtype != torch.uint8 or comp.dim() != 2 or comp.shape[1] < 1:
+            raise ValueError("comp must be uint8[B, CMAX] with CMAX >= 1")
+        if not 1 <= out_capacity < 2**31:
+            raise ValueError("out_capacity must be in [1, 2**31)")
+        b, cmax = comp.shape
+        if cmax >= 2**30:
+            raise ValueError("the decode kernel takes rows below 2**30 bytes")
+        comp = comp.contiguous()
+        comp_sizes = comp_sizes.to(torch.int32).contiguous()
+        out = torch.empty(b, out_capacity, dtype=torch.uint8, device=comp.device)  # the kernels write every byte
+        lengths = torch.empty(b, dtype=torch.int32, device=comp.device)
+        status = torch.empty(b, dtype=torch.int32, device=comp.device)
+        if b == 0:
+            return out, lengths, status
+        # rows whose output goes back are rewritten by start, `slots` at a time
+        slots = max(1, min(-(-b // 32), REWRITE_SCRATCH // out_capacity))
+        scratch = torch.empty(slots * out_capacity, dtype=torch.int32, device=comp.device)
+        with torch.cuda.device(comp.device):
+            counter = profiling.counter_ptr("snappy.decode.elements", comp.device)
+            lib = _build.load()
+            with span(".launch"):
+                err = lib.tc_snappy_decode(
+                    comp.data_ptr(), comp_sizes.data_ptr(), out.data_ptr(), lengths.data_ptr(),
+                    status.data_ptr(), b, cmax, out_capacity, scratch.data_ptr(), slots, counter,
+                    torch.cuda.current_stream(comp.device).cuda_stream,
+                )
+        _raise_if(err, "decode")
+        LAUNCHES["decode"] += 1
         return out, lengths, status
-    # rows whose output goes back are rewritten by start, `slots` at a time
-    slots = max(1, min(-(-b // 32), REWRITE_SCRATCH // out_capacity))
-    scratch = torch.empty(slots * out_capacity, dtype=torch.int32, device=comp.device)
-    with torch.cuda.device(comp.device):
-        err = _build.load().tc_snappy_decode(
-            comp.data_ptr(), comp_sizes.data_ptr(), out.data_ptr(), lengths.data_ptr(),
-            status.data_ptr(), b, cmax, out_capacity, scratch.data_ptr(), slots,
-            torch.cuda.current_stream(comp.device).cuda_stream,
-        )
-    _raise_if(err, "decode")
-    LAUNCHES["decode"] += 1
-    return out, lengths, status

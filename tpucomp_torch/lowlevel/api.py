@@ -3,7 +3,9 @@
 PyTorch counterpart of ``tpucomp.lowlevel.api``: a ``BatchCodec`` of plain
 functions over dense chunk batches.  PyTorch's caching allocator owns
 scratch, so the *GetTempSize members report 0, as the reference's cascaded
-path does; "async on a stream" is PyTorch's current CUDA stream.
+path does; "async on a stream" is PyTorch's current CUDA stream.  A batch
+call is the outermost span of the port's tracer (``compress.api`` /
+``decompress.api``, ``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Any, Callable
 import torch
 
 from tpucomp_torch.core.chunking import ChunkBatch
+from tpucomp_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,15 +45,17 @@ class BatchCodec:
 
     def compress(self, batch: ChunkBatch, opts=None) -> ChunkBatch:
         """Batched compression; returns a ChunkBatch of compressed streams."""
-        opts = opts or self.default_opts
-        comp, sizes = self.compress_fn(batch.data, batch.lengths, opts)
-        return ChunkBatch(comp, sizes)
+        with span("compress.api"):
+            opts = opts or self.default_opts
+            comp, sizes = self.compress_fn(batch.data, batch.lengths, opts)
+            return ChunkBatch(comp, sizes)
 
     def decompress(self, comp: ChunkBatch, out_capacity: int, opts=None):
         """Batched decompression; returns (ChunkBatch, statuses int32[B])."""
-        opts = opts or self.default_opts
-        data, lengths, statuses = self.decompress_fn(comp.data, comp.lengths, opts, out_capacity)
-        return ChunkBatch(data, lengths), statuses
+        with span("decompress.api"):
+            opts = opts or self.default_opts
+            data, lengths, statuses = self.decompress_fn(comp.data, comp.lengths, opts, out_capacity)
+            return ChunkBatch(data, lengths), statuses
 
     def get_decompress_size(self, comp: ChunkBatch, opts=None) -> torch.Tensor:
         opts = opts or self.default_opts
