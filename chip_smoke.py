@@ -38,15 +38,18 @@ failure raises and exits non-zero):
    2 and 4; chunks from 64 B to 1 MB and one of 16 MB; the match table's
    edge rows: nearest occurrences exactly 65535 and 65536 back at its 64K
    segment seams in 70 KB and 16 MB rows, windows that agree in three of
-   four bytes, all-distinct windows, tiny rows, an odd capacity; the
-   oracle's streams and the golden fixtures; garbage, truncated,
-   bit-flipped and hand-corrupted streams; undersized outputs; the decode
-   kernel's window cases), tolerance 0: the match-table kernel against
-   lz77.match_table at strides 1, 2 and 4 on every encode case, the
-   encoder against _compress_plain, the decoder against _decompress_plain;
-   streams of stride 1 up to 64 KB also equal the oracle's.  Then the
-   table kernel and a whole compress timed on 1 MB rows of all-distinct
-   windows and of zeros (each must compress in under 115 ms)
+   four bytes, all-distinct windows, tiny rows, an odd capacity; its
+   grouping path's rows (group_rows: one bucket, a frequent window in its
+   bucket, zeros, distinct windows, 64 KB edges and collisions, 65,536
+   and 65,537 bytes); the oracle's streams and the golden fixtures;
+   garbage, truncated, bit-flipped and hand-corrupted streams; undersized
+   outputs; the decode kernel's window cases), tolerance 0: the
+   match-table kernel against lz77.match_table at strides 1, 2 and 4 on
+   every encode case, the encoder against _compress_plain, the decoder
+   against _decompress_plain; streams of stride 1 up to 64 KB also equal
+   the oracle's.  Then the table kernel and a whole compress timed on 1 MB
+   rows of all-distinct windows, of zeros and of windows in one bucket of
+   the grouping kernel's hash (each must compress in under 115 ms)
 7. LZ4 main path: both corpora through tpucomp_torch.lz4_codec.compress /
    decompress; exact round trips, all SUCCESS, all three kernels launched
    (launch counters reset just before)
@@ -513,7 +516,7 @@ def phase_lz4_matrix(dev):
     encode_cases += [("merged 64 KB", *cases.merged_table_row(), 1)]
     encode_cases += [(name, arr, lens, 1) for name, arr, lens in cases.kernel_sizes(rng)]
     encode_cases += [("16 MB chunk", *cases.big_chunk(rng), 1)]
-    for label, arr, lens in cases.table_rows(np.random.default_rng(21)):
+    for label, arr, lens in cases.table_rows(np.random.default_rng(21)) + cases.group_rows(np.random.default_rng(23)):
         encode_cases += [(f"{label} stride {s}", arr, lens, s) for s in (1, 2, 4)]
     for label, arr, lens, stride in encode_cases:
         d, ln = cuda(arr, lens)
@@ -569,8 +572,10 @@ def _time_worst_row(table, compress, dev, label):
     """CUDA-event times of the table kernel and of a whole compress on the
     rows that stress the table most: 1 MB of all-distinct 4-byte windows
     (every position a key of its own: the longest search a hash chain
-    would walk, and no early end for any search), and 1 MB of zeros (every
-    window equal)."""
+    would walk, and no early end for any search), 1 MB of zeros (every
+    window equal), and 1 MB whose windows at multiples of 4 all fall in one
+    bucket of the grouping kernel's hash (torch_lz4_cases.one_bucket_row;
+    rows past 64 KB take the radix path, which has no buckets)."""
     import numpy as np
     import torch
 
@@ -579,7 +584,8 @@ def _time_worst_row(table, compress, dev, label):
 
     c = 1 << 20
     for name, row in (("all-distinct windows", cases.unique_windows(np.random.default_rng(31), c)),
-                      ("zeros", np.zeros(c, np.uint8))):
+                      ("zeros", np.zeros(c, np.uint8)),
+                      ("one-bucket windows", cases.one_bucket_row(np.random.default_rng(32), c, 4))):
         d = torch.from_numpy(row[None, :].copy()).to(dev)
         ln = torch.full((1,), c, dtype=torch.int32, device=dev)
         tt = wall(table, d, ln, iters=ITERS, warmup=WARMUP)
@@ -729,6 +735,7 @@ def phase_snappy_matrix(dev):
     import numpy as np
     import torch
 
+    import torch_lz4_cases as lz4_cases
     import torch_snappy_cases as cases
     from oracles.snappy_oracle import snappy_compress_oracle
     from tpucomp_torch.codecs import lz77
@@ -747,7 +754,7 @@ def phase_snappy_matrix(dev):
                     ("128 KB rows", *cases.large_rows(rng))]
     encode_cases += [(name, arr, lens) for name, arr, lens in cases.kernel_sizes(rng)]
     encode_cases += [("16 MB chunk", *cases.big_chunk(rng))]
-    table_cases = cases.table_rows(np.random.default_rng(22))
+    table_cases = cases.table_rows(np.random.default_rng(22)) + lz4_cases.group_rows(np.random.default_rng(23))
     for label, arr, lens in encode_cases + table_cases:
         d, ln = cuda(arr, lens)
         tbl = _snappy_table(d, ln)
@@ -1163,10 +1170,14 @@ def phase_tracer(corpora):
     discarded on runheavy; lz4.encode.sequences and lz4.decode.sequences
     both equal the sequences the streams hold, as snappy.encode.sequences
     and snappy.decode.elements equal the Snappy streams' sequences and
-    elements (_walk_steps).  Returns the counters by corpus."""
+    elements (_walk_steps); the match table's lz.table.positions and
+    lz.table.large_bucket_positions, under either codec, equal what the
+    rows' buckets hold (torch_lz4_cases.group_counts).  Returns the
+    counters by corpus."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import torch_lz4_cases as cases
     import tpucomp_torch
     from tpucomp_torch.utils import profiling
 
@@ -1176,6 +1187,7 @@ def phase_tracer(corpora):
     result = {}
     for name, data in corpora.items():
         batch = tpucomp_torch.ChunkBatch(data, torch.full((B,), C, dtype=torch.int32, device=data.device))
+        grouped = cases.group_counts(data.cpu().numpy(), batch.lengths.cpu().numpy(), 1)
         profiling.reset()
         for api, opts in apis.values():
             api.decompress(api.compress(batch, opts), C, opts)
@@ -1191,7 +1203,8 @@ def phase_tracer(corpora):
                 torch.cuda.synchronize()
             if not torch.equal(data_out.data, data) or statuses.any():
                 raise AssertionError(f"phase 23 {name} {codec}: the traced round trip is not exact")
-            counts = {k: v for k, v in profiling.counters().items() if k.startswith(f"{codec}.")}
+            counts = {k: v for k, v in profiling.counters().items()
+                      if k.startswith(f"{codec}.") or (codec != "cascaded" and k.startswith("lz.table."))}
             if codec == "cascaded":
                 head = comp.data[:, :3].to(torch.int64)
                 raw = int(((head[:, 0] | head[:, 1] << 8 | head[:, 2] << 16) == 0).sum())
@@ -1205,7 +1218,9 @@ def phase_tracer(corpora):
                 counts["stream_sequences"], counts["stream_elements"] = sequences, elements
                 ok = counts[f"{codec}.encode.sequences"] == sequences and (
                     counts["lz4.decode.sequences"] == sequences if codec == "lz4"
-                    else counts["snappy.decode.elements"] == elements)
+                    else counts["snappy.decode.elements"] == elements) and grouped == (
+                    counts["lz.table.positions"], counts["lz.table.large_bucket_positions"])
+                counts["large_bucket_pct"] = 100.0 * grouped[1] / grouped[0]
             if not ok:
                 raise AssertionError(f"phase 23 {name} {codec}: counters do not hold to the streams: {counts}")
             got[codec] = counts

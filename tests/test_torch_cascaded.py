@@ -172,8 +172,8 @@ def test_port_never_imports_jax_or_tpucomp():
                 assert top not in ("jax", "jaxlib", "tpucomp"), f"{path}: imports {name}"
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/torch_cascaded_ab.py",
-                                    "scripts/torch_multicard.py", "tpucomp_torch/bench.py",
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/torch_cascaded_ab.py", "scripts/torch_table_ab.py",
+                                    "scripts/torch_table_clocks.py", "scripts/torch_multicard.py", "tpucomp_torch/bench.py",
                                     "examples/torch_round_trip.py", "examples/torch_distributed.py"])
 def test_chip_scripts_never_import_the_tpu_bench(script):
     """The card's scripts, the port's bench and its examples take their

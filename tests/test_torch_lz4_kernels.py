@@ -162,6 +162,56 @@ def test_lz4_table_rows_equal_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", range(10))
+def test_lz4_table_group_rows_equal_plain(cuda, case):
+    """The grouping path of the match-table kernel (rows of up to 64 KB):
+    rows whose windows at stride 4 or 2 all fall in one bucket of its hash,
+    a frequent window among distinct ones of its bucket (sorted by a warp,
+    and by the CTA), windows its 32-bit sort values cannot tell apart,
+    zeros, all-distinct windows, Snappy's window edge and
+    the collision row at 64 KB, and rows of 65,536 and 65,537 bytes, either
+    side of the switch to the radix path.  Strides 1, 2 and 4."""
+    label, arr, lens = cases.group_rows(np.random.default_rng(23))[case]
+    d, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda)
+    for stride in (1, 2, 4):
+        _compress_both(d, n, stride)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["zeros 64 KB", "distinct windows 64 KB", "mixed 65,536 B",
+                                   "frequent window in its bucket", "mixed 65,537 B"])
+def test_lz_table_counters_read_grouped_positions(cuda, label):
+    """Traced, the table kernel counts the valid positions it grouped and
+    those in buckets of more than 32 (its sorts): all of them on zeros, none
+    on all-distinct windows, what the rows' buckets hold elsewhere, and
+    nothing for rows past 64 KB, which the radix path takes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpucomp_torch.utils import profiling
+
+    arr, lens = dict((k, (a, n)) for k, a, n in cases.group_rows(np.random.default_rng(23)))[label]
+    d, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda)
+    for stride in (1, 4):
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            table = _table(d, n, stride)
+        counts = profiling.counters()
+        profiling.reset()
+        assert torch.equal(table, lz77.match_table(d, n, stride))
+        positions, large = cases.group_counts(arr, lens, stride)
+        assert (counts["lz.table.positions"], counts["lz.table.large_bucket_positions"]) == (positions, large)
+        if label == "zeros 64 KB":
+            assert large == positions == (len(arr[0]) - 3 + stride - 1) // stride
+        elif label == "distinct windows 64 KB":
+            assert large == 0 and positions == (len(arr[0]) - 3 + stride - 1) // stride
+        elif label == "mixed 65,537 B":
+            assert positions == 0
+        else:
+            assert 0 < large < positions
+
+
+@pytest.mark.cuda
 def test_lz4_cuda_compress_finds_its_own_candidates(cuda, monkeypatch):
     """A CUDA compress runs the match-table kernel, never the torch
     pre-pass (``lz77.candidate_tables`` and its sort)."""

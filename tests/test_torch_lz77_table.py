@@ -9,7 +9,9 @@ occurrence of each position's 4-byte window, within each format's limits,
 applied in numpy: LZ4 (window 65535, last candidate at n - 13, strides 1,
 2 and 4) and Snappy (32768, n - 4).  Inputs are numpy rows from a seed:
 the profiles, window-edge rows of 70 KB, rows whose windows agree in three
-of four bytes, and rows of n in {0, 3, 4, 5, 12, 13, 14}.
+of four bytes, rows of n in {0, 3, 4, 5, 12, 13, 14}, and the 64 KB rows
+aimed at the card kernel's grouping path (``torch_lz4_cases.group_rows``),
+whose aim is checked here too.
 
 Tolerance: none.  The tables are integer arrays and must be equal.
 """
@@ -26,7 +28,9 @@ from tpucomp_torch.codecs import lz77
 import torch_lz4_cases as cases
 
 FORMATS = {"lz4": (65535, 13), "snappy": (32768, 4)}
-ROWS = ["profiles", "window edge lz4", "window edge snappy", "collisions", "tiny"]
+ROWS = ["profiles", "window edge lz4", "window edge snappy", "collisions", "tiny",
+        "one bucket at stride 4", "one bucket at stride 2", "frequent window in its bucket"]
+GROUP_ROWS = [label for label, _, _ in cases.group_rows(np.random.default_rng(23))]
 
 
 def _rows(name):
@@ -39,6 +43,8 @@ def _rows(name):
         return cases.window_edge_row(rng, 70000, 32768)
     if name == "collisions":
         return cases.collision_row(rng, 70001)
+    if name in GROUP_ROWS:
+        return dict((k, (a, n)) for k, a, n in cases.group_rows(np.random.default_rng(23)))[name]
     return cases.batch([rng.integers(0, 3, n).astype(np.uint8) for n in (0, 3, 4, 5, 12, 13, 14)], 14)
 
 
@@ -73,3 +79,46 @@ def test_match_table_holds_the_window_edges():
         got = got.to(torch.int64).numpy()[0]
         assert (got == max_offset).any(), fmt
         assert not (got > max_offset).any(), fmt
+
+
+def _bucket_sizes(row, n, stride):
+    r = row[:n].astype(np.uint32)
+    keys = (r[:-3] | r[1:-2] << 8 | r[2:-1] << 16 | r[3:] << 24)[::stride]
+    return keys, np.bincount(cases.group_buckets(keys).astype(np.int64), minlength=1 << cases.GROUP_HASH_BITS)
+
+
+@pytest.mark.parametrize("name", GROUP_ROWS)
+def test_group_rows_reach_their_paths(name):
+    """Each row of ``group_rows`` reaches the part of the grouping path it
+    is named for: one bucket at its stride; a frequent window among
+    distinct ones of its bucket, in a bucket a warp sorts (up to 512
+    positions) and in two the CTA does (with up to 4,096 others beside the
+    frequent window); every position large on zeros, none on distinct
+    windows; and the 64 KB switch."""
+    arr, lens = _rows(name)
+    if name.startswith("one bucket"):
+        stride = int(name[-1])
+        keys, sizes = _bucket_sizes(arr[0], int(lens[0]), stride)
+        assert sizes[0] == keys.size and len(np.unique(keys)) > keys.size * 0.9
+    elif name == "frequent window in its bucket":  # a warp's sort, the CTA's bitmap with a few or many others
+        for row, n, lo, hi, others in zip(arr, lens, (33, 513, 4097), (512, 4096, 1 << 16), (100, 300, 2000)):
+            keys, sizes = _bucket_sizes(row, int(n), 4)
+            in0 = keys[cases.group_buckets(keys) == 0]
+            _, counts = np.unique(in0, return_counts=True)
+            assert lo <= sizes[0] <= hi and counts.max() > in0.size // 2 and in0.size - counts.max() > others
+    elif name == "clashing windows":  # equal hash bits 3 .. 18 (and bucket), different windows
+        for row, n in zip(arr, lens):
+            keys = _bucket_sizes(row, int(n), 4)[0]
+            u = np.unique(keys)
+            mid = (u.astype(np.uint64) * cases.GROUP_HASH_MUL & 0xFFFFFFFF) >> 3
+            _, counts = np.unique(mid, return_counts=True)
+            assert (counts > 1).sum() >= 1
+    elif name == "zeros 64 KB":
+        assert cases.group_counts(arr, lens, 1) == (65533, 65533)
+    elif name == "distinct windows 64 KB":
+        assert cases.group_counts(arr, lens, 1) == (65533, 0)
+    elif name.startswith("mixed"):
+        assert arr.shape[1] == cases.GROUP_MAX_ROW + name.endswith("537 B")
+        assert (cases.group_counts(arr, lens, 1)[0] > 0) == (arr.shape[1] <= cases.GROUP_MAX_ROW)
+    else:  # the window edge and the collisions at 64 KB
+        assert arr.shape[1] == cases.GROUP_MAX_ROW and cases.group_counts(arr, lens, 1)[0] == 65533

@@ -281,6 +281,8 @@ READERS = [
                            "lz_match_table_kernel": 0.02})}, 1e9 * (0.008 / 4) / (10_000 / 5)),
     ("lz4_decode_ns_per_seq", "lz4", _calls("decompress", "lz4", 2), {"lz4.decode.sequences": 3_000},
      {"decompress": _window({"lz4_decode_kernel": 0.006}, calls=3)}, 1e9 * (0.006 / 3) / (3_000 / 2)),
+    ("lz_table_large_bucket_pct", "lz4", [],
+     {"lz.table.positions": 2_000, "lz.table.large_bucket_positions": 680}, None, 34.0),
 ]
 
 

@@ -19,6 +19,7 @@ from tpucomp_torch.codecs import snappy as ts
 from tpucomp_torch.kernels import lz77_cuda
 from tpucomp_torch.kernels import snappy_cuda as ks
 
+import torch_lz4_cases as lz4_cases
 import torch_snappy_cases as cases
 
 ENCODE_CASES = ["rows", "window64k", "large128k", "C64", "C4096", "C65536", "C1048576", "C16M"]
@@ -171,6 +172,18 @@ def test_snappy_table_rows_equal_plain(cuda, case):
     70 KB and 16 MB rows; windows that agree in three of four bytes; rows
     of n in {0, 3, 4, 5}; a capacity of 37."""
     label, arr, lens = cases.table_rows(np.random.default_rng(22))[case]
+    _compress_both(torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(10))
+def test_snappy_table_group_rows_equal_plain(cuda, case):
+    """The grouping path of the match-table kernel with the Snappy limits:
+    the rows of ``torch_lz4_cases.group_rows`` (one bucket, a frequent
+    window in its bucket, clashing windows, zeros, distinct windows, the window edge 32768
+    back and the collisions at 64 KB, rows of 65,536 and 65,537 bytes)."""
+    label, arr, lens = lz4_cases.group_rows(np.random.default_rng(23))[case]
     _compress_both(torch.from_numpy(arr).to(cuda), torch.from_numpy(lens).to(cuda))
     torch.cuda.synchronize()
 

@@ -271,6 +271,138 @@ def table_rows(rng):
             ("odd capacity", *batch([rng.integers(0, 4, 37).astype(np.uint8), b"abcabcabc" * 4], 37))]
 
 
+# The grouping path of csrc/lz_match_table.cu (rows of up to 64 KB): its
+# hash of a 4-byte window (little-endian) into 2**13 buckets, and the size
+# above which a bucket goes through its sorts, the large-bucket path.
+GROUP_MAX_ROW = 1 << 16
+GROUP_HASH_MUL, GROUP_HASH_BITS = 2654435761, 13
+GROUP_SMALL = 32
+
+
+def group_buckets(keys: np.ndarray) -> np.ndarray:
+    """The grouping path's bucket of each uint32 window."""
+    return ((keys.astype(np.uint64) * GROUP_HASH_MUL) & 0xFFFFFFFF) >> (32 - GROUP_HASH_BITS)
+
+
+def one_bucket_row(rng, c: int, stride: int) -> np.ndarray:
+    """c bytes whose windows at the multiples of ``stride`` (4 or 2) all
+    fall in bucket 0 of the grouping path's hash, mostly distinct: at 4,
+    words w with w * MUL < 2**19 (mod 2**32); at 2, 16-bit halves each
+    chosen from the 8 that put the window it closes in bucket 0.  (No row
+    puts every window at stride 1 in one bucket: a byte has 8 bits of
+    freedom and a bucket takes 13.)"""
+    if stride == 4:
+        inv = pow(GROUP_HASH_MUL, -1, 1 << 32)
+        t = rng.choice(1 << (32 - GROUP_HASH_BITS), c // 4 + 1, replace=False).astype(np.uint64)
+        return ((t * np.uint64(inv)) & np.uint64(0xFFFFFFFF)).astype("<u4").view(np.uint8)[:c].copy()
+    # the window at 2k is h[k] | h[k + 1] << 16; its product's top 16 bits
+    # are (h[k] * MUL >> 16) + h[k + 1] * (MUL mod 2**16), mod 2**16
+    m16 = GROUP_HASH_MUL & 0xFFFF
+    inv16 = pow(m16, -1, 1 << 16)
+    top = rng.integers(0, 1 << (16 - GROUP_HASH_BITS), c // 2 + 1)  # a product's top 16 bits below 8: bucket 0
+    h = np.zeros(c // 2 + 2, np.int64)
+    h[0] = int(rng.integers(0, 1 << 16))
+    for k in range(c // 2 + 1):
+        hi = (int(h[k]) * GROUP_HASH_MUL >> 16) & 0xFFFF
+        h[k + 1] = (int(top[k]) - hi) * inv16 & 0xFFFF
+    return h.astype("<u2").view(np.uint8)[:c].copy()
+
+
+def frequent_window_rows(rng, c: int = 1 << 16):
+    """(uint8[3, c], int32[3]): random bytes with words of bucket 0 planted
+    at multiples of 4, most of them one frequent word and the rest
+    distinct: 300 planted, 60% frequent (a bucket one warp sorts by window
+    and position), 1,000 at 60% (too many for a warp: the CTA's bitmap of
+    the frequent word's positions, the rest set aside and sorted by a
+    warp) and every aligned word at 85% (the rest, ~2,500, sorted by the
+    CTA)."""
+    inv = pow(GROUP_HASH_MUL, -1, 1 << 32)
+    rows = []
+    for planted, share in ((300, 0.6), (1000, 0.6), (c // 4, 0.85)):
+        row = rng.integers(0, 256, c, dtype=np.uint8)
+        at = np.sort(rng.choice(c // 4, planted, replace=False))
+        t = rng.choice(np.arange(1, 1 << (32 - GROUP_HASH_BITS)), planted, replace=False).astype(np.uint64)
+        t[rng.random(planted) < share] = 0x5A5A
+        words = ((t * np.uint64(inv)) & np.uint64(0xFFFFFFFF)).astype("<u4").view(np.uint8).reshape(-1, 4)
+        row.reshape(-1, 4)[at] = words
+        rows.append(row)
+    return batch(rows, c)
+
+
+def clash_rows(rng, c: int = 1 << 16):
+    """(uint8[4, c], int32[4]): random bytes with words planted at multiples
+    of 4 whose hashes (GROUP_HASH_MUL) differ in their lowest 3 bits only:
+    one bucket and the same bits 3 .. 18, which the grouping path's 32-bit
+    sort values cannot tell apart, so it must check and sort such buckets
+    again by the windows themselves.  Row 0: 400 such pairs, 3 of each word,
+    in buckets of a few; row 1: one pair, 100 of each, in turn (a warp's
+    bucket); rows 2 and 3: three such words over every aligned word, 40 / 30
+    / 30% (the CTA sorts the whole bucket) and 80 / 10 / 10% (the CTA sorts
+    the two minor ones after the bitmap of the major)."""
+    inv = pow(GROUP_HASH_MUL, -1, 1 << 32)
+
+    def words(h):
+        return ((np.asarray(h, np.uint64) * np.uint64(inv)) & np.uint64(0xFFFFFFFF)).astype("<u4")
+
+    rows = []
+    row = rng.integers(0, 256, c, dtype=np.uint8)
+    h = rng.choice(1 << 29, 400, replace=False).astype(np.uint64) << np.uint64(3)
+    pairs = np.stack([words(h), words(h + np.uint64(1))], 1)
+    at = rng.choice(c // 4, 2400, replace=False)
+    row.reshape(-1, 4)[at] = np.tile(pairs, 3).reshape(-1).view(np.uint8).reshape(-1, 4)
+    rows.append(row)
+    row = rng.integers(0, 256, c, dtype=np.uint8)
+    at = np.sort(rng.choice(c // 4, 200, replace=False))
+    row.reshape(-1, 4)[at] = np.tile(words([0x12345678, 0x12345679]), 100).view(np.uint8).reshape(-1, 4)
+    rows.append(row)
+    for shares in ((0.4, 0.7), (0.8, 0.9)):
+        u = rng.random(c // 4)
+        which = np.where(u < shares[0], 0, np.where(u < shares[1], 1, 2))
+        rows.append(words(0x3C3C3C38 + which).view(np.uint8).copy())
+    return batch(rows, c)
+
+
+def group_rows(rng):
+    """(label, uint8[B, C], int32[B]) for the grouping path of the
+    match-table kernel, each to be run at strides 1, 2 and 4: rows of one
+    bucket (at stride 4 and 2), a frequent window among distinct ones of
+    its bucket, windows its sort values cannot tell apart, zeros, all-distinct windows, the window edge of Snappy
+    (32,768 back) and the collision row at 64 KB, and mixed rows of 65,536
+    bytes (this path; full, n - 3 and zeros) and 65,537 (the radix path)."""
+    c = GROUP_MAX_ROW
+    return [("one bucket at stride 4", *batch([one_bucket_row(rng, c, 4)], c)),
+            ("one bucket at stride 2", *batch([one_bucket_row(rng, c, 2)], c)),
+            ("frequent window in its bucket", *frequent_window_rows(rng, c)),
+            ("clashing windows", *clash_rows(rng, c)),
+            ("zeros 64 KB", *batch([np.zeros(c, np.uint8)], c)),
+            ("distinct windows 64 KB", *batch([unique_windows(rng, c)], c)),
+            ("window edge 64 KB", *window_edge_row(rng, c, 32768)),
+            ("collisions 64 KB", *collision_row(rng, c)),
+            ("mixed 65,536 B", *batch([random_row(rng, c), random_row(rng, c - 3), np.zeros(c, np.uint8)], c)),
+            ("mixed 65,537 B", *batch([random_row(rng, c + 1), random_row(rng, 40000)], c + 1))]
+
+
+def group_counts(arr: np.ndarray, lens: np.ndarray, stride: int) -> tuple[int, int]:
+    """The tracer's ``lz.table.positions`` and
+    ``lz.table.large_bucket_positions`` for one table of these rows: the
+    valid positions of rows of up to 64 KB, and those of them in buckets of
+    more than GROUP_SMALL (rows past 64 KB take the radix path, which
+    counts nothing)."""
+    if arr.shape[1] > GROUP_MAX_ROW:
+        return 0, 0
+    positions = large = 0
+    for row, n in zip(arr, lens):
+        n = min(max(int(n), 0), arr.shape[1])
+        if n < 4:
+            continue
+        r = row[:n].astype(np.uint32)
+        keys = (r[:-3] | r[1:-2] << 8 | r[2:-1] << 16 | r[3:] << 24)[::stride]
+        counts = np.bincount(group_buckets(keys).astype(np.int64), minlength=1 << GROUP_HASH_BITS)
+        positions += keys.size
+        large += int(counts[counts > GROUP_SMALL].sum())
+    return positions, large
+
+
 def random_row(rng, n: int) -> np.ndarray:
     """n bytes of random segments: runs, random bytes, text, zeros, short
     periods and copies of earlier bytes at offsets near and past 65535."""

@@ -44,8 +44,9 @@ SIGNATURES = {
     "tc_cascaded_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P],
     # batch, row_bytes, scratch_bytes (out) -> the table kernel's grid
     "tc_lz_match_table_grid": [_L, _L, ctypes.POINTER(_L)],
-    # data, lengths, out, scratch, batch, row_bytes, stride, max_offset, end_margin, grid, stream
-    "tc_lz_match_table": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
+    # data, lengths, out, scratch, batch, row_bytes, stride, max_offset, end_margin, grid,
+    # counters, stream
+    "tc_lz_match_table": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P, _P],
     # data, lengths, table, out, sizes, batch, row_bytes, out_row, counter, stream
     "tc_lz4_encode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _P],
     # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity, counter, stream

@@ -14,11 +14,14 @@ it with their format's limits (``codecs.lz4.compress``,
 counts its launches.  The table is allocated with ``torch.empty``: the
 kernel writes every entry.  The kernel's library gives the grid and the
 size of its scratch (two index arrays for each CTA the card holds at
-once), so the scratch is bounded by the card, not the batch.
+once, for rows past 64 KB; none for shorter rows), so the scratch is
+bounded by the card, not the batch.
 
 Spans (``utils/profiling.py``): ``.table`` under the codec's span
 (``compress.lz4.table``, ``compress.snappy.table``), with a ``.launch``
-child around the foreign call alone.  The kernel counts nothing.
+child around the foreign call alone.  Counters: ``lz.table.positions``
+and ``lz.table.large_bucket_positions``, which the kernel adds to for rows
+of up to 64 KB (one address, the first's; the second is the next slot).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import ctypes
 import torch
 
 from tpucomp_torch.kernels import _build
+from tpucomp_torch.utils import profiling
 from tpucomp_torch.utils.profiling import span
 
 LAUNCHES = {"table": 0}
@@ -67,10 +71,11 @@ def match_table(data: torch.Tensor, lengths: torch.Tensor, stride: int, max_offs
             if grid <= 0:
                 raise RuntimeError(f"LZ match-table kernel: occupancy query failed with CUDA error {-grid}")
             scratch = torch.empty(scratch_bytes.value, dtype=torch.uint8, device=data.device)
+            counters = profiling.counter_ptr("lz.table.positions", data.device)
             with span(".launch"):
                 err = lib.tc_lz_match_table(
                     data.data_ptr(), lengths.data_ptr(), table.data_ptr(), scratch.data_ptr(), b, c, stride,
-                    max_offset, end_margin, grid, torch.cuda.current_stream(data.device).cuda_stream,
+                    max_offset, end_margin, grid, counters, torch.cuda.current_stream(data.device).cuda_stream,
                 )
         if err:
             raise RuntimeError(f"LZ match-table kernel launch failed with CUDA error {err}")

@@ -50,8 +50,11 @@ encode kernel ran through its pipeline), ``cascaded.encode.chunks_discarded``
 ``cascaded.encode.partitions_raw`` (non-empty partitions stored raw),
 ``lz4.encode.sequences`` / ``snappy.encode.sequences`` (sequences the encode
 walk emitted), ``lz4.decode.sequences`` (sequences the decode walk
-completed) and ``snappy.decode.elements`` (elements the decode walk
-completed).
+completed), ``snappy.decode.elements`` (elements the decode walk
+completed), and the match-table kernel's, for rows of up to 64 KB (LZ4
+and Snappy alike): ``lz.table.positions`` (the valid positions it grouped)
+and ``lz.table.large_bucket_positions`` (those in buckets of more than 32,
+which it sorts).
 
 ``wall`` times each call of a function between two CUDA events on the
 current stream, after warm-up, and reports the median, min and max; it
@@ -82,6 +85,8 @@ COUNTERS = (
     "lz4.decode.sequences",
     "snappy.encode.sequences",
     "snappy.decode.elements",
+    "lz.table.positions",
+    "lz.table.large_bucket_positions",  # the kernel adds to the slot after lz.table.positions
 )
 _SLOT = {name: i for i, name in enumerate(COUNTERS)}
 _NULL = contextlib.nullcontext()
