@@ -16,9 +16,10 @@ one set of macros alone.  Each build's C entry points are called on CPU tensors 
 ``kernels/cascaded_cuda.py`` calls them on the card, into outputs
 pre-filled with a marker byte (every byte must be written), and holds
 rows, sizes, data, byte counts and statuses to ``_compress_plain`` /
-``_decompress_plain`` with tolerance 0, and the encoder's counters
-(``utils/profiling.py``) to the rows it wrote (raw partitions by their
-headers, chunks run outside them by their lengths): the kernel cases of
+``_decompress_plain`` with tolerance 0, and the kernels' counters
+(``utils/profiling.py``) to the rows the encoder wrote (raw partitions by
+their headers, chunks run outside them by their lengths; the decoder's on
+the rows as written): the kernel cases of
 tests/torch_cases.py that stay small (the test matrix, the rest of the
 option space, N random option sets and shapes, and the 8-byte profiles
 of ``w8_cases``; not the two 16 MB partitions), each decoded as written,
@@ -69,7 +70,7 @@ def build(src: str, out_dir: str, defines=()):
                     os.path.join(HERE, "emu.cpp")], check=True)
     lib = ctypes.CDLL(lib)
     lib.tc_cascaded_encode.argtypes = [P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P, P]
-    lib.tc_cascaded_decode.argtypes = [P, P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P]
+    lib.tc_cascaded_decode.argtypes = [P, P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P, P]
     return lib
 
 
@@ -89,25 +90,39 @@ def encode(lib, data, lengths, o, counters=None):
     return out, sizes
 
 
-def counts_wrong(comp, lengths, c, o, counters) -> str:
-    """What differs between the encoder's counters and its rows (of ``c``
-    input bytes): raw partitions are the non-empty ones whose header has
-    zero layer bytes; the chunks run outside them are all their chunks (at
-    most k a partition)."""
+def _rows_counted(comp, lengths, c, o):
+    """(raw, chunks kept) of the encoder's rows (of ``c`` input bytes): raw
+    partitions are the non-empty ones whose header has zero layer bytes;
+    the others keep all their chunks (at most k a partition)."""
     n_elems = lengths.to(torch.int64).clamp(min=0) // width_of(o.type)
     layers = comp[:, 0].to(torch.int64) | comp[:, 1].to(torch.int64) << 8 | comp[:, 2].to(torch.int64) << 16
     raw = (lengths > 0) & (layers == 0)
     k = max(1, -(-c // o.chunk_size))
-    kept = torch.where(raw, 0, (-(-n_elems // o.chunk_num_elements)).clamp(max=k)).sum()
+    return raw, int(torch.where(raw, 0, (-(-n_elems // o.chunk_num_elements)).clamp(max=k)).sum())
+
+
+def counts_wrong(comp, lengths, c, o, counters) -> str:
+    """What differs between the encoder's counters and its rows."""
+    raw, kept = _rows_counted(comp, lengths, c, o)
     chunks, discarded, partitions_raw = counters.tolist()
-    want = (int(kept) + discarded, int(raw.sum()))
+    want = (kept + discarded, int(raw.sum()))
     if (chunks, partitions_raw) != want or discarded > chunks:
-        return f"counters {counters.tolist()}, rows give chunks - discarded {int(kept)}, raw {want[1]}"
+        return f"counters {counters.tolist()}, rows give chunks - discarded {kept}, raw {want[1]}"
     return ""
 
 
-def decode(lib, comp, sizes, o, cap):
-    """The decode kernel's (data, byte counts, statuses)."""
+def decode_counts_wrong(comp, lengths, c, o, counters) -> str:
+    """What differs between the decoder's counters, on the rows as the
+    encoder wrote them, and those rows: every kept chunk decoded, every raw
+    partition with an element copied."""
+    raw, kept = _rows_counted(comp, lengths, c, o)
+    want = [kept, int((raw & (lengths.to(torch.int64) >= width_of(o.type))).sum())]
+    return "" if counters.tolist() == want else f"decode counters {counters.tolist()}, rows give {want}"
+
+
+def decode(lib, comp, sizes, o, cap, counters=None):
+    """The decode kernel's (data, byte counts, statuses); ``counters``
+    (int64[2]) takes its chunks run and raw partitions."""
     b, cmax = comp.shape
     out = torch.full((b, cap), MARK, dtype=torch.uint8)
     nbytes = torch.full((b,), -7, dtype=torch.int32)
@@ -115,7 +130,8 @@ def decode(lib, comp, sizes, o, cap):
     err = lib.tc_cascaded_decode(comp.data_ptr(), sizes.data_ptr(), out.data_ptr(), nbytes.data_ptr(),
                                  status.data_ptr(), b, cmax, cap, width_of(o.type), int(o.type),
                                  o.chunk_num_elements, max(1, -(-cap // o.chunk_size)), o.num_rles,
-                                 o.num_deltas, int(o.use_bp), None)
+                                 o.num_deltas, int(o.use_bp), None if counters is None else counters.data_ptr(),
+                                 None)
     assert err == 0
     return out, nbytes, status
 
@@ -183,7 +199,13 @@ def check(args, defines) -> int:
                     bad += 1
                     print(f"MISMATCH {label} encode: {wrong}", flush=True)
                 cap = arr.shape[1] - arr.shape[1] % w
-                decode_both(label, comp, sizes, o, cap)
+                counters = torch.zeros(2, dtype=torch.int64)
+                if same(f"{label} decode", decode(lib, comp, sizes, o, cap, counters),
+                        cc._decompress_plain(comp, sizes, o, cap)):
+                    wrong = decode_counts_wrong(comp, ln, arr.shape[1], o, counters)
+                    if wrong:
+                        bad += 1
+                        print(f"MISMATCH {label} decode: {wrong}", flush=True)
                 decode_both(f"{label} other-opts", comp, sizes,
                             opts_from_fields({**fields, "num_rles": (fields["num_rles"] + 1) % 3,
                                               "num_deltas": 0}), cap)

@@ -10,19 +10,22 @@ Each NAME=DIR[+MACRO=VALUE...] is a directory holding
 ``tpucomp_torch/csrc`` (an older tree's ``tpucomp_torch/csrc`` works: a
 source includes the headers beside it first; a source DIR lacks is taken
 from ``tpucomp_torch/csrc``), built with nvcc into a library of its own,
-with the macros given after ``+`` defined.
+with the macros given after ``+`` defined.  A decode entry point that
+takes no counter address (a tree from before its counters) is called
+without one; every other is called with a null one, as untraced calls are.
 ``scripts/cascaded_variants/staged_row`` holds the decode that first
 copies each chunked partition's compressed row into shared memory.  The
 inputs are the 256 MB mixed and run-heavy corpora as uint8[4096, 65536]
-(the main path) and the mixed corpus as uint8[65536, 4096]
-(CascadedManager's default chunks), all with ``CascadedOpts()``.  On each
+(the main path) and as uint8[65536, 4096] (CascadedManager's default
+chunks), all with ``CascadedOpts()``, and the int64 timestamp column as
+uint8[4096, 65536] with ``CascadedOpts(type=LONGLONG)``.  On each
 input every variant is first held to ``_compress_plain`` /
 ``_decompress_plain`` (tolerance 0) with its outputs zeroed, then again
 with its outputs filled with 0xAB: a variant that passes only the first
 needs its outputs zeroed (the first port's kernels, whose wrappers
 zero-filled) and is reported so.  Then the kernels are timed with CUDA
 events, outputs
-allocated outside the timing, in turns: 4 rounds of every variant in
+allocated outside the timing, in turns: 8 rounds of every variant in
 order and in reverse, one encode and one decode call each.  The zero-fill
 of both outputs that such a wrapper needs is timed beside them.  Prints
 the card and its power limit, then one line per input, variant and
@@ -44,12 +47,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT]
 from tpucomp_torch.codecs import cascaded as cc  # noqa: E402
 from tpucomp_torch.core.options import CascadedOpts  # noqa: E402
-from tpucomp_torch.core.types import width_of  # noqa: E402
-from tpucomp_torch.utils.corpus import load_corpus, runheavy_corpus  # noqa: E402
+from tpucomp_torch.core.types import DataType, width_of  # noqa: E402
+from tpucomp_torch.utils.corpus import load_corpus, runheavy_corpus, timestamps64_corpus  # noqa: E402
 
 TOTAL = 4096 * 65536
 P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-ROUNDS = 4
+ROUNDS = 8
 
 
 def build(name, spec, tmp):
@@ -70,7 +73,10 @@ def build(name, spec, tmp):
     subprocess.run([nvcc, "-shared", "-o", lib, *objs], check=True)
     lib = ctypes.CDLL(lib)
     lib.tc_cascaded_encode.argtypes = [P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P, P]
-    lib.tc_cascaded_decode.argtypes = [P, P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P]
+    with open(sources[1]) as f:
+        entry = f.read().split('extern "C" int tc_cascaded_decode(', 1)[1].split(")", 1)[0]
+    lib.decode_counters = "counters" in entry
+    lib.tc_cascaded_decode.argtypes = [P, P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I] + [P] * (1 + lib.decode_counters)
     return lib
 
 
@@ -82,6 +88,7 @@ def kernels(lib, data, lengths, o):
     args = (w, int(o.type), o.chunk_num_elements, max(1, -(-c // o.chunk_size)), o.num_rles, o.num_deltas,
             int(o.use_bp))
     stream = torch.cuda.current_stream().cuda_stream
+    tail = (None, stream) if lib.decode_counters else (stream,)
     pmax = cc.partition_output_max(c, o)
 
     def encode(out, sizes):
@@ -91,7 +98,7 @@ def kernels(lib, data, lengths, o):
 
     def decode(comp, comp_sizes, out, nbytes, status):
         err = lib.tc_cascaded_decode(comp.data_ptr(), comp_sizes.data_ptr(), out.data_ptr(), nbytes.data_ptr(),
-                                     status.data_ptr(), b, pmax, c, *args, stream)
+                                     status.data_ptr(), b, pmax, c, *args, *tail)
         assert err == 0, err
 
     return encode, decode
@@ -153,12 +160,14 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    o = CascadedOpts()
+    int32, int64 = CascadedOpts(), CascadedOpts(type=DataType.LONGLONG)
     with tempfile.TemporaryDirectory() as tmp:
         libs = {n: build(n, spec, tmp) for n, spec in variants.items()}
-        for label, gen, c in (("mixed 4096 x 64 KB", load_corpus, 65536),
-                              ("runheavy 4096 x 64 KB", runheavy_corpus, 65536),
-                              ("mixed 65536 x 4 KB", load_corpus, 4096)):
+        for label, gen, c, o in (("mixed 4096 x 64 KB", load_corpus, 65536, int32),
+                                 ("runheavy 4096 x 64 KB", runheavy_corpus, 65536, int32),
+                                 ("mixed 65536 x 4 KB", load_corpus, 4096, int32),
+                                 ("runheavy 65536 x 4 KB", runheavy_corpus, 4096, int32),
+                                 ("timestamps64 LONGLONG 4096 x 64 KB", timestamps64_corpus, 65536, int64)):
             data = torch.from_numpy(np.frombuffer(gen(TOTAL), np.uint8).reshape(-1, c).copy()).cuda()
             lengths = torch.full((data.shape[0],), c, dtype=torch.int32, device="cuda")
             compare(libs, label, data, lengths, o)

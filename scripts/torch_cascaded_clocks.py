@@ -10,7 +10,9 @@ temporary directory, inserts clock64() counters at fixed points (lane 0
 of each team adds its cycles to one counter per phase), builds them with
 nvcc and runs each kernel 4 times on the 256 MB mixed and run-heavy
 corpora as uint8[4096, 65536] and on mixed as uint8[65536, 4096]
-(CascadedManager's chunks), with ``CascadedOpts()``.  Prints, per input
+(CascadedManager's chunks), with ``CascadedOpts()``, and on the 256 MB
+int64 timestamp column as uint8[4096, 65536] with
+``CascadedOpts(type=LONGLONG)`` (the 64-bit units).  Prints, per input
 and kernel, the cycles per chunk of each phase summed over the teams:
 encode ``load``, ``rle``, ``counts`` (packing an RLE-count blob),
 ``delta``, ``final`` (packing the final blob), ``vote`` and ``totals``
@@ -36,8 +38,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT]
 from tpucomp_torch.codecs import cascaded as cc  # noqa: E402
 from tpucomp_torch.core.options import CascadedOpts  # noqa: E402
-from tpucomp_torch.core.types import width_of  # noqa: E402
-from tpucomp_torch.utils.corpus import load_corpus, runheavy_corpus  # noqa: E402
+from tpucomp_torch.core.types import DataType, width_of  # noqa: E402
+from tpucomp_torch.utils.corpus import load_corpus, runheavy_corpus, timestamps64_corpus  # noqa: E402
 
 TOTAL, CALLS = 4096 * 65536, 4
 P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -58,7 +60,7 @@ ENCODE_PROBES = [
     ("const int runs = team_rle(", "", "CLK(1);"),
     ("stage + pos, room - pos, stage + pos + hw, room - pos - hw);", "", "CLK(2);"),
     ("n = max(n - 1, 0);", "", "CLK(3);"),
-    ("kDirect ? room - pos - hw : (long long)p.arr_words);", "", "CLK(4);"),
+    ("kDirect ? room - pos - fhw : (long long)p.arr_words);", "", "CLK(4);"),
     ("if (!__syncthreads_or(active)) break;", "long long clk = clock64();", "CLK(5);"),
     ("if (lane == 0) totals[team] = st.total;", "", "clk = clock64();"),
     ("long long before = 0, round = 0;", "CLK(6);", ""),
@@ -72,7 +74,7 @@ DECODE_PROBES = [
     ("if (!__syncthreads_or(any)) break;", "clk = clock64();", "CLK(1);"),
     ("long long n = team_read_blob(", "long long clk = clock64();", "CLK(2);"),
     ("team_delta_decode(cur, n,", "", "CLK(3);"),
-    ("team_read_blob(row, ci.base + ci.rle_off[r]", "", "CLK(4);"),
+    ("team_read_blob<uint32_t>(row, ci.base + ci.rle_off[r]", "", "CLK(4);"),
     ("n = team_rle_decode(cur, z, n, alt, e);", "", "CLK(5);"),
     ("if (lane == 0) counts[team] = n;", "", "clk = clock64();"),
     ("long long before = 0, round = 0;", "CLK(6);", ""),
@@ -114,7 +116,7 @@ def build(src, tmp):
                     "-Xcompiler", "-fPIC", "-shared", "-o", lib, *srcs], check=True)
     lib = ctypes.CDLL(lib)
     lib.tc_cascaded_encode.argtypes = [P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P, P]
-    lib.tc_cascaded_decode.argtypes = [P, P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P]
+    lib.tc_cascaded_decode.argtypes = [P, P, P, P, P, LL, LL, LL, I, I, I, I, I, I, I, P, P]
     lib.tc_clocks_take.argtypes = [P]
     return lib
 
@@ -130,19 +132,21 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    o = CascadedOpts()
-    w = width_of(o.type)
+    int32, int64 = CascadedOpts(), CascadedOpts(type=DataType.LONGLONG)
     with tempfile.TemporaryDirectory() as tmp:
         lib = build(src, tmp)
-        for label, gen, c in (("mixed 4096 x 64 KB", load_corpus, 65536),
-                              ("runheavy 4096 x 64 KB", runheavy_corpus, 65536),
-                              ("mixed 65536 x 4 KB", load_corpus, 4096)):
+        for label, gen, c, o in (("mixed 4096 x 64 KB", load_corpus, 65536, int32),
+                                 ("runheavy 4096 x 64 KB", runheavy_corpus, 65536, int32),
+                                 ("mixed 65536 x 4 KB", load_corpus, 4096, int32),
+                                 ("timestamps64 LONGLONG 4096 x 64 KB", timestamps64_corpus, 65536, int64)):
+            w = width_of(o.type)
             data = torch.from_numpy(np.frombuffer(gen(TOTAL), np.uint8).reshape(-1, c).copy()).cuda()
             b = data.shape[0]
             lengths = torch.full((b,), c, dtype=torch.int32, device="cuda")
             pmax = cc.partition_output_max(c, o)
+            # the options, then no counters and the stream
             args = (w, int(o.type), o.chunk_num_elements, max(1, -(-c // o.chunk_size)), o.num_rles,
-                    o.num_deltas, int(o.use_bp), torch.cuda.current_stream().cuda_stream)
+                    o.num_deltas, int(o.use_bp), None, torch.cuda.current_stream().cuda_stream)
             comp = torch.empty(b, pmax, dtype=torch.uint8, device="cuda")
             sizes = torch.empty(b, dtype=torch.int32, device="cuda")
             out = torch.empty(b, c, dtype=torch.uint8, device="cuda")

@@ -190,6 +190,21 @@ def test_counter_addresses_are_slots_of_one_buffer(tracer):
     assert tracer.counters() == {n: 10 + i for i, n in enumerate(profiling.COUNTERS)}
 
 
+def test_decode_counters_are_adjacent_slots_reset_with_the_others(tracer):
+    """The decode kernel adds to ``cascaded.decode.chunks`` through its
+    address and to ``.partitions_raw`` in the slot after it."""
+    i = profiling.COUNTERS.index("cascaded.decode.chunks")
+    assert profiling.COUNTERS[i + 1] == "cascaded.decode.partitions_raw"
+    with profile(activities=CPU):
+        ptr = tracer.counter_ptr("cascaded.decode.chunks", torch.device("cpu"))
+    ctypes.c_int64.from_address(ptr).value += 16
+    ctypes.c_int64.from_address(ptr + 8).value += 3
+    want = {**dict.fromkeys(profiling.COUNTERS, 0), "cascaded.decode.chunks": 16, "cascaded.decode.partitions_raw": 3}
+    assert tracer.counters() == want
+    tracer.reset()
+    assert tracer.counters() == {}
+
+
 def test_trace_reduce_labels_gaps_with_the_port_spans():
     """The benchmark's own reduction, unchanged: an idle gap inside a port
     span nested in ``compress.call`` is labelled by the port span."""
@@ -262,6 +277,16 @@ def _window(op_s, calls=4):
     return btrace.Window(calls=calls, window_s=1.0, busy_s=0.5, ops=2 * calls, op_s=op_s, idle_s={})
 
 
+# the Cascaded kernels' names as the profiler records them, one per instantiation
+ENC64 = ("void tpucomp::(anonymous namespace)::cascaded_encode_kernel<unsigned long long, false>"
+         "(tpucomp::(anonymous namespace)::EncodeParams)")
+ENC32 = ENC64.replace("unsigned long long", "unsigned int")
+DEC64 = ("void tpucomp::(anonymous namespace)::cascaded_decode_kernel<unsigned long long>"
+         "(tpucomp::(anonymous namespace)::DecodeParams)")
+DEC32 = DEC64.replace("unsigned long long", "unsigned int")
+IO = {"compress": (268_451_840, 41_222_144), "decompress": (41_222_144, 268_484_608)}  # bytes read, written
+
+
 READERS = [
     # metric, codec, records, counters, windows, expected
     ("host_us.compress.cascaded", "cascaded", _calls("compress", "cascaded", 5), {}, None, 7.0),
@@ -283,7 +308,46 @@ READERS = [
      {"decompress": _window({"lz4_decode_kernel": 0.006}, calls=3)}, 1e9 * (0.006 / 3) / (3_000 / 2)),
     ("lz_table_large_bucket_pct", "lz4", [],
      {"lz.table.positions": 2_000, "lz.table.large_bucket_positions": 680}, None, 34.0),
+    ("cascaded_decode_ns_per_chunk", "cascaded", _calls("decompress", "cascaded", 4),
+     {"cascaded.encode.chunks": 9_999, "cascaded.decode.chunks": 262_144},
+     {"decompress": _window({DEC64: 0.006, "Memcpy DtoH (Device -> Pageable)": 0.001}, calls=5)},
+     1e9 * (0.006 / 5) / (262_144 / 4)),
 ]
+
+
+KERNEL_ROOFLINES = [
+    # metric, the phase's window, expected
+    ("cascaded64_encode_roofline", {"compress": _window({ENC64: 0.0024, "Memcpy DtoH (Device -> Pageable)": 0.001})},
+     100.0 * sum(IO["compress"]) / 3.35e12 / (0.0024 / 4)),
+    ("cascaded64_decode_roofline", {"decompress": _window({DEC64: 0.0036, ENC32: 0.5}, calls=6)},
+     100.0 * sum(IO["decompress"]) / 3.35e12 / (0.0036 / 6)),
+    ("cascaded64_encode_roofline", {"compress": _window({ENC32: 0.0024, DEC64: 0.003})}, None),  # no 64-bit encode
+    ("cascaded64_decode_roofline", {"decompress": _window({DEC32: 0.0036})}, None),  # no 64-bit decode
+    ("cascaded64_decode_roofline", {"compress": _window({DEC64: 0.0036})}, None),  # no decompress window
+]
+
+
+@pytest.mark.parametrize("metric,windows,want", KERNEL_ROOFLINES,
+                         ids=[f"{r[0]}-{i}" for i, r in enumerate(KERNEL_ROOFLINES)])
+def test_kernel_roofline_reads_one_instantiation(tracer, metric, windows, want):
+    """The least time of a call's bytes at 3.35 TB/s over the 64-bit
+    kernel's device time a call, the other operations and instantiations
+    left out; None where no 64-bit op ran.  The port's tracer is not read."""
+    run = harness.Run(entry=types.SimpleNamespace(config={"codec": "cascaded"}, io_bytes=IO.__getitem__),
+                      setup_s=1.0, compress_peak_bytes=None, windows=windows)
+    got = harness.load_module("metrics", metric).read(run)
+    assert got is None if want is None else got == pytest.approx(want)
+    if want is not None:
+        assert 0 < got <= 100
+
+
+def test_decode_ns_per_chunk_reads_none_without_its_counter(monkeypatch):
+    """Decode spans and the kernel in the window, but no decode counter (a
+    port whose decode kernel counts nothing): None."""
+    monkeypatch.setattr(profiling, "spans", lambda: _calls("decompress", "cascaded", 4))
+    monkeypatch.setattr(profiling, "counters", lambda: {"cascaded.encode.chunks": 65_536})
+    run = _run("cascaded", {"decompress": _window({DEC32: 0.006}, calls=5)})
+    assert harness.load_module("metrics", "cascaded_decode_ns_per_chunk").read(run) is None
 
 
 @pytest.mark.parametrize("metric,codec,records,counts,windows,want", READERS, ids=[r[0] for r in READERS])
@@ -344,7 +408,61 @@ def test_card_wrappers_span_and_kernels_count(tracer, cuda, codec):
         assert counts["cascaded.encode.partitions_raw"] == raw
         kept = (64 - raw) * (c // opts.chunk_size)
         assert counts["cascaded.encode.chunks"] - counts["cascaded.encode.chunks_discarded"] == kept
+        assert (counts["cascaded.decode.chunks"], counts["cascaded.decode.partitions_raw"]) == (kept, raw)
     elif codec == "lz4":
         assert counts["lz4.encode.sequences"] == counts["lz4.decode.sequences"] > 64
     else:
         assert counts["snappy.decode.elements"] >= counts["snappy.encode.sequences"] > 64
+
+
+@pytest.mark.cuda
+def test_card_64bit_cascaded_kernels_count_and_read_as_the_benchmark_reads_them(tracer, cuda):
+    """The benchmark's int64 timestamp configuration on the card, one call a
+    phase in the benchmark's traced windows: the streams equal the plain
+    reference's and restore; the decode kernel counts every chunk and no raw
+    partition; the per-kernel roofline readers find the 64-bit kernels by
+    their names and read at most 100%, and the decode reader reads a time a
+    chunk."""
+    from benchmark.entries.batch import port_opts, rows_wrong
+    from benchmark.reference import cascaded as ref
+
+    root = harness.ROOT
+    config = json.loads((root / "benchmark" / "configs" / "cascaded-int64.json").read_text())
+    traffic = json.loads((root / "benchmark" / "traffic" / "batch-timestamps.json").read_text())
+    rows, c = 64, int(config["partition_bytes"])
+    raw = harness.load_module("data", traffic["data"]).make(rows * c, int(traffic["data_seed"]), root, {})
+    raw = harness.load_module("seed", config["seed_transform"]).apply(raw, 2**31 + 12345)
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).view(rows, c).to(cuda)
+    lengths = torch.full((rows,), c, dtype=torch.int32, device=cuda)
+    codec, opts = tpucomp_torch.cascaded_codec, port_opts(config)
+    batch = tpucomp_torch.ChunkBatch(data, lengths)
+    comp = codec.compress(batch, opts)  # off: no buffer, no record
+    assert tracer.counters() == {}
+    windows, out = {}, {}
+
+    def loop(phase):
+        def calls(span):
+            with span(f"{phase}.call"):
+                out[phase] = codec.compress(batch, opts) if phase == "compress" else codec.decompress(comp, c, opts)
+            return types.SimpleNamespace(calls=1)
+        return calls
+
+    for phase in ("compress", "decompress"):
+        _, windows[phase] = btrace.profile(phase, loop(phase), lambda: None)
+    counts = tracer.counters()
+    ref_comp, ref_sizes = ref.compress(data, lengths, config["opts"])
+    assert rows_wrong(out["compress"].data, out["compress"].lengths, ref_comp, ref_sizes) == 0
+    restored, statuses = out["decompress"]
+    assert torch.equal(restored.data, data) and not statuses.any()
+    assert counts["cascaded.decode.chunks"] == rows * c // opts.chunk_size
+    assert counts["cascaded.decode.partitions_raw"] == counts["cascaded.encode.partitions_raw"] == 0
+    stream_bytes = int(comp.lengths.to(torch.int64).sum())
+    io = {"compress": (rows * c + 4 * rows, stream_bytes + 4 * rows),
+          "decompress": (stream_bytes + 4 * rows, rows * c + 8 * rows)}
+    run = harness.Run(entry=types.SimpleNamespace(config=config, io_bytes=io.__getitem__), setup_s=0.0,
+                      compress_peak_bytes=None, windows=windows)
+    names = sorted(windows["compress"].op_s) + sorted(windows["decompress"].op_s)
+    for metric in ("cascaded64_encode_roofline", "cascaded64_decode_roofline"):
+        got = harness.load_module("metrics", metric).read(run)
+        assert got is not None and 0 < got <= 100, (metric, got, names)
+    assert harness.load_module("metrics", "cascaded_decode_ns_per_chunk").read(run) > 0

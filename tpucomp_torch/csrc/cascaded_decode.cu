@@ -43,6 +43,12 @@
 //   one-chunk partitions (CascadedManager's default) puts several
 //   partitions in one CTA.
 //
+// Counters (tpucomp_torch/utils/profiling.py): where `counters` is not
+// null, each team adds the chunks it ran through the pipeline to
+// counters[0] once, at the partition's end, and each non-empty partition
+// copied raw adds 1 to counters[1].  Null (tracing off) costs a branch a
+// team and a partition.
+//
 // The chunk element counts are summed in 64 bits; the JAX reference sums
 // them in int32, so the two could differ only on streams whose chunks claim
 // more than 2**31 elements in total.
@@ -74,6 +80,7 @@ struct DecodeParams {
   long long batch, row_bytes, out_capacity;  // row_bytes: CMAX
   int width, dtype, elems, k, nr, nd, bp;
   int slots, parts, arr_words;  // TeamPlan; E rounded up to 4: the elements of each of a team's arrays
+  unsigned long long* counters;  // chunks run, raw partitions; null: count nothing
 };
 
 // One compressed row, read as bytes (zero past its end) or as u32 words
@@ -336,7 +343,7 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_decode_kernel(DecodeP
   const long long end4 = end_words * 4;
   long long cum = 0, placed_end = 0;  // elements counted and placed so far
   long long pos = kPartitionHeader;   // the walk (lane 0 of team slot 0)
-  int steps = 0;
+  int steps = 0, ran = 0;  // chunks walked (the walk), chunks decoded (this team)
   // the walk's loads depend on each other: ask for the row's lines first
   if (ok)
     for (long long at = 128LL * (s * 32 + lane); at < min(end4, p.row_bytes); at += 128LL * 32 * p.slots)
@@ -367,7 +374,10 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_decode_kernel(DecodeP
     long long n = kNoChunk;
     if (mine && chunk_at[team] >= 0) {
       n = kBadChunk;
-      if (info[team].ok) n = decode_chunk(row, info[team], p, cur, alt, z);
+      if (info[team].ok) {
+        n = decode_chunk(row, info[team], p, cur, alt, z);
+        ++ran;
+      }
     }
     if (lane == 0) counts[team] = n;
     __syncthreads();
@@ -396,6 +406,8 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_decode_kernel(DecodeP
     placed_end += round;
   }
 
+  if (p.counters && lane == 0 && ran) atomicAdd(p.counters, (unsigned long long)ran);
+
   // the partition's teams write the rest of its row and its status
   if (!mine) return;
   const int tid = s * 32 + lane, nth = p.slots * 32;
@@ -404,6 +416,7 @@ __global__ void __launch_bounds__(32 * kMaxTeams) cascaded_decode_kernel(DecodeP
     ok = hdr_ok && comp_size >= kPartitionHeader + n_elems * w;
     if (ok) {
       end = max(0LL, min(n_elems * w, p.row_bytes - kPartitionHeader));
+      if (p.counters && tid == 0 && end > 0) atomicAdd(p.counters + 1, 1ULL);
       copy_bytes(o, src + kPartitionHeader, end, tid, nth);
     }
   } else {
@@ -436,7 +449,7 @@ int launch_decode(const DecodeParams& p, const TeamPlan& plan, cudaStream_t st) 
 extern "C" int tc_cascaded_decode(const void* comp, const void* comp_sizes, void* out,
                                   void* out_bytes, void* status, long long batch,
                                   long long row_bytes, long long out_capacity, int width, int dtype,
-                                  int elems, int k, int nr, int nd, int bp, void* stream) {
+                                  int elems, int k, int nr, int nd, int bp, void* counters, void* stream) {
   using namespace tpucomp;
   // a team's workspace: two arrays of E units (4 bytes, 8 for w = 8) and
   // the u32 counts
@@ -446,7 +459,8 @@ extern "C" int tc_cascaded_decode(const void* comp, const void* comp_sizes, void
   const DecodeParams p{static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_sizes),
                        static_cast<uint8_t*>(out), static_cast<int32_t*>(out_bytes),
                        static_cast<int32_t*>(status), batch, row_bytes, out_capacity, width, dtype, elems, k,
-                       nr, nd, bp, plan.slots, plan.parts, (int)arr_words};
+                       nr, nd, bp, plan.slots, plan.parts, (int)arr_words,
+                       static_cast<unsigned long long*>(counters)};
   return wide ? launch_decode<unsigned long long>(p, plan, static_cast<cudaStream_t>(stream))
               : launch_decode<uint32_t>(p, plan, static_cast<cudaStream_t>(stream));
 }

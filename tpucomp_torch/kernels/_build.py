@@ -40,8 +40,8 @@ SIGNATURES = {
     # k, nr, nd, bp, counters, stream
     "tc_cascaded_encode": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # comp, comp_sizes, out, out_bytes, status, batch, row_bytes,
-    # out_capacity, width, dtype, elems, k, nr, nd, bp, stream
-    "tc_cascaded_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P],
+    # out_capacity, width, dtype, elems, k, nr, nd, bp, counters, stream
+    "tc_cascaded_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # batch, row_bytes, scratch_bytes (out) -> the table kernel's grid
     "tc_lz_match_table_grid": [_L, _L, ctypes.POINTER(_L)],
     # data, lengths, out, scratch, batch, row_bytes, stride, max_offset, end_margin, grid,

@@ -21,10 +21,12 @@ and every size and status), so outputs are allocated with ``torch.empty``.
 
 Spans (``utils/profiling.py``): ``compress.cascaded.encode`` and
 ``decompress.cascaded.decode``, each with a ``.launch`` child around the
-foreign call alone.  The encode kernel takes one more argument, the
-address of the tracer's ``cascaded.encode.chunks`` counter, followed by
-``.chunks_discarded`` and ``.partitions_raw``; it is null while tracing is
-off, and the kernel then counts nothing.
+foreign call alone.  Each kernel takes one more argument, the address of
+its first counter in the tracer's buffer: ``cascaded.encode.chunks``,
+followed by ``.chunks_discarded`` and ``.partitions_raw``, for the encode
+kernel, and ``cascaded.decode.chunks``, followed by ``.partitions_raw``,
+for the decode kernel.  It is null while tracing is off, and the kernel
+then counts nothing.
 """
 
 from __future__ import annotations
@@ -109,13 +111,14 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: CascadedOpts,
         if b == 0:
             return out, out_bytes, status
         with torch.cuda.device(comp.device):
+            counters = profiling.counter_ptr("cascaded.decode.chunks", comp.device)
             lib = _build.load()
             with span(".launch"):
                 err = lib.tc_cascaded_decode(
                     comp.data_ptr(), comp_sizes.data_ptr(), out.data_ptr(), out_bytes.data_ptr(),
                     status.data_ptr(), b, cmax, out_capacity, w, int(opts.type), opts.chunk_num_elements,
                     max(1, -(-out_capacity // opts.chunk_size)), opts.num_rles, opts.num_deltas,
-                    int(opts.use_bp), _stream(comp.device),
+                    int(opts.use_bp), counters, _stream(comp.device),
                 )
         _raise_if(err, "decode")
         LAUNCHES["decode"] += 1

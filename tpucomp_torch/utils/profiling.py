@@ -48,8 +48,10 @@ The device counters (``COUNTERS``): ``cascaded.encode.chunks`` (chunks the
 encode kernel ran through its pipeline), ``cascaded.encode.chunks_discarded``
 (those of them in partitions that then fell back raw),
 ``cascaded.encode.partitions_raw`` (non-empty partitions stored raw),
-``lz4.encode.sequences`` / ``snappy.encode.sequences`` (sequences the encode
-walk emitted), ``lz4.decode.sequences`` (sequences the decode walk
+``cascaded.decode.chunks`` (chunks the decode kernel ran through its
+pipeline), ``cascaded.decode.partitions_raw`` (non-empty partitions it
+copied raw), ``lz4.encode.sequences`` / ``snappy.encode.sequences``
+(sequences the encode walk emitted), ``lz4.decode.sequences`` (sequences the decode walk
 completed), ``snappy.decode.elements`` (elements the decode walk
 completed), and the match-table kernel's, for rows of up to 64 KB (LZ4
 and Snappy alike): ``lz.table.positions`` (the valid positions it grouped)
@@ -81,6 +83,8 @@ COUNTERS = (
     "cascaded.encode.chunks",
     "cascaded.encode.chunks_discarded",
     "cascaded.encode.partitions_raw",
+    "cascaded.decode.chunks",
+    "cascaded.decode.partitions_raw",  # the kernel adds to the slot after cascaded.decode.chunks
     "lz4.encode.sequences",
     "lz4.decode.sequences",
     "snappy.encode.sequences",
