@@ -84,9 +84,13 @@ failure raises and exits non-zero):
    LZ4Manager, SnappyManager and CascadedManager at their default chunk
    sizes, and CascadedManager(opts=LONGLONG), create_manager on each
    artifact, exact round trips, the
-   codec's kernels launched; compress and decompress wall times (host
+   codec's kernels and the managers' copy kernel (pack, unpack) launched
+   and no other; compress and decompress wall times (host
    clock, one call; and CUDA-event medians of several calls), with the
-   artifact assembly and the stream slicing timed alone
+   artifact assembly and the stream slicing alone: the copy kernel's
+   artifact and rows equal to the plain versions' (run on the card), and
+   both times beside the bound (stream bytes read once, the artifact or
+   the rows written once)
 14. scaling: the LZ4 and Snappy encode walks (given the table) and decode
    kernels on the first 1,056, 2,112 and 4,096 chunks of mixed (~8, 16
    and 31 warps per SM): time per sequence or element against the warps
@@ -1003,10 +1007,12 @@ def phase_hlif(corpora, counters, paths):
     """The 256 MB mixed corpus as one buffer through each manager at its
     default chunk size, and through CascadedManager(opts=LONGLONG):
     create_manager on the artifact, exact round trip,
-    the codec's kernels launched (the counters of ``paths[codec]``) and no
-    other; compress and decompress times on the host clock (one call) and
-    by CUDA events (medians of several), and the assembly and slicing
-    alone (CUDA events)."""
+    the codec's kernels and the copy kernel launched (the counters of
+    ``paths[codec]`` and ``manager``) and no other; compress and decompress
+    times on the host clock (one call) and by CUDA events (medians of
+    several), and the assembly and slicing alone (CUDA events): the copy
+    kernel held to the plain versions on the card, both timed beside the
+    bound."""
     import torch
 
     import tpucomp_torch
@@ -1041,9 +1047,10 @@ def phase_hlif(corpora, counters, paths):
             raise AssertionError(f"HLIF {name}: create_manager gave {type(mgr2).__name__}")
         if not torch.equal(out, data) or bool(statuses.any()):
             raise AssertionError(f"HLIF {name}: 256 MB round trip is not exact")
-        launched = {k: n for c in paths[codec] for k, n in counters[c].items()}
+        path = paths[codec] + ("manager",)
+        launched = {k: n for c in path for k, n in counters[c].items()}
         if not all(launched.values()) or any(
-                any(c.values()) for k, c in counters.items() if k not in paths[codec]):
+                any(c.values()) for k, c in counters.items() if k not in path):
             raise AssertionError(f"HLIF {name}: launches {counters}")
         # the assembly and the slicing alone, at the manager's shapes
         cs = mgr.uncomp_chunk_size
@@ -1053,27 +1060,46 @@ def phase_hlif(corpora, counters, paths):
         common = hdr.CommonHeader.unpack(artifact[: hdr.COMMON_HEADER_SIZE].cpu().numpy().tobytes())
         head = artifact[: hdr.sections_offset(mgr.format_id)].cpu().numpy().tobytes()
         cfg = mgr.configure_compression(n)
-        t_asm = wall(tm._assemble_artifact, comp, sizes, head, data_off=common.comp_data_offset,
-                     sections_off=hdr.sections_offset(mgr.format_id), out_max=cfg.max_compressed_buffer_size,
-                     iters=ITERS, warmup=WARMUP)
-        t_slice = wall(tm._slice_streams, artifact, common, hdr.sections_offset(mgr.format_id),
-                       mgr._max_comp_chunk_size(cs), iters=ITERS, warmup=WARMUP)
+        layout = {"data_off": common.comp_data_offset, "sections_off": hdr.sections_offset(mgr.format_id),
+                  "out_max": cfg.max_compressed_buffer_size}
+        max_chunk = mgr._max_comp_chunk_size(cs)
+        got, want = tm._assemble_artifact(comp, sizes, head, **layout), tm._assemble_plain(comp, sizes, head, **layout)
+        if got[1] != want[1] or not torch.equal(got[0], want[0]):
+            raise AssertionError(f"HLIF {name}: the copy kernel's artifact differs from the plain assembly's")
+        del got, want
+        sliced = artifact[:size]
+        got = tm._slice_streams(sliced, common, layout["sections_off"], max_chunk)
+        want = tm._slice_plain(sliced, common, layout["sections_off"], max_chunk)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"HLIF {name}: the copy kernel's rows differ from the plain slicing's")
+        del got, want
+        t_asm = wall(tm._assemble_artifact, comp, sizes, head, **layout, iters=ITERS, warmup=WARMUP)
+        t_asm_plain = wall(tm._assemble_plain, comp, sizes, head, **layout, iters=3, warmup=1)
+        t_slice = wall(tm._slice_streams, sliced, common, layout["sections_off"], max_chunk, iters=ITERS,
+                       warmup=WARMUP)
+        t_slice_plain = wall(tm._slice_plain, sliced, common, layout["sections_off"], max_chunk, iters=3, warmup=1)
+        stream_bytes = common.comp_data_size
+        asm_bound, slice_bound = bound_ms(stream_bytes + layout["out_max"]), bound_ms(stream_bytes + k * max_chunk)
         # the whole calls again, as CUDA-event medians (one host-clock call spreads)
         t_comp = wall(mgr.compress, data, iters=ITERS, warmup=WARMUP)
         t_decomp = wall(mgr2.decompress, artifact, iters=ITERS, warmup=WARMUP)
         out_lines[name] = {"chunk": cs, "chunks": k, "artifact_bytes": size, "compress_ms": walls["compress"],
                            "decompress_ms": walls["decompress"], "compress_event_ms": t_comp.summary(),
                            "decompress_event_ms": t_decomp.summary(), "assemble_ms": t_asm.median_ms,
-                           "slice_ms": t_slice.median_ms, "launches": launched}
+                           "assemble_plain_ms": t_asm_plain.median_ms, "assemble_bound_ms": asm_bound,
+                           "slice_ms": t_slice.median_ms, "slice_plain_ms": t_slice_plain.median_ms,
+                           "slice_bound_ms": slice_bound, "launches": launched}
         print(f"phase 13 HLIF {name}: {n / 2**20:.0f} MB mixed as one buffer, {k} chunks of {cs} B, create_manager -> "
               f"{type(mgr2).__name__}, exact round trip, all SUCCESS, ratio {n / size:.4f}; compress "
               f"{walls['compress']:.3f} ms ({n / walls['compress'] / 1e6:.3f} GB/s), decompress "
               f"{walls['decompress']:.3f} ms ({n / walls['decompress'] / 1e6:.3f} GB/s) (host clock, one "
               f"call each); by CUDA events, median of {ITERS}: compress {t_comp.median_ms:.3f} ms "
               f"(min {t_comp.min_ms:.3f}, max {t_comp.max_ms:.3f}), decompress {t_decomp.median_ms:.3f} ms "
-              f"(min {t_decomp.min_ms:.3f}, max {t_decomp.max_ms:.3f}); alone: assembly {t_asm.median_ms:.3f} ms, "
-              f"slicing {t_slice.median_ms:.3f} ms (medians of {ITERS}); launches {launched}", flush=True)
-        del artifact, out, statuses, comp, sizes
+              f"(min {t_decomp.min_ms:.3f}, max {t_decomp.max_ms:.3f}); alone, the copy kernel equal to the plain "
+              f"versions: assembly {t_asm.median_ms:.3f} ms (plain {t_asm_plain.median_ms:.3f}, bound "
+              f"{asm_bound:.3f}), slicing {t_slice.median_ms:.3f} ms (plain {t_slice_plain.median_ms:.3f}, bound "
+              f"{slice_bound:.3f}) (medians of {ITERS}, plain of 3); launches {launched}", flush=True)
+        del artifact, sliced, out, statuses, comp, sizes
         torch.cuda.empty_cache()
     return out_lines
 
@@ -1750,10 +1776,12 @@ def main() -> int:
     from tpucomp_torch.kernels import cascaded_cuda as kc
     from tpucomp_torch.kernels import lz4_cuda as kl
     from tpucomp_torch.kernels import lz77_cuda as kt
+    from tpucomp_torch.kernels import manager_cuda as km
     from tpucomp_torch.kernels import snappy_cuda as ks
 
     # each wrapper module's launch counts, and the modules each main path launches
-    counters = {"cascaded": kc.LAUNCHES, "lz4": kl.LAUNCHES, "snappy": ks.LAUNCHES, "table": kt.LAUNCHES}
+    counters = {"cascaded": kc.LAUNCHES, "lz4": kl.LAUNCHES, "snappy": ks.LAUNCHES, "table": kt.LAUNCHES,
+                "manager": km.LAUNCHES}
     paths = {"cascaded": ("cascaded",), "lz4": ("lz4", "table"), "snappy": ("snappy", "table")}
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)

@@ -157,8 +157,9 @@ def test_port_never_imports_jax_or_tpucomp():
     assert len(files) >= 15
     tests = pathlib.Path(torch_cases.__file__).parent
     files += [root.parent / "chip_smoke.py", tests / "torch_cases.py", tests / "torch_lz4_cases.py",
-              tests / "torch_snappy_cases.py", tests / "oracles" / "cascaded_oracle.py",
-              tests / "oracles" / "lz4_oracle.py", tests / "oracles" / "snappy_oracle.py"]
+              tests / "torch_snappy_cases.py", tests / "torch_manager_cases.py",
+              tests / "oracles" / "cascaded_oracle.py", tests / "oracles" / "lz4_oracle.py",
+              tests / "oracles" / "snappy_oracle.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

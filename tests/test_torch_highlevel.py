@@ -31,6 +31,8 @@ from tpucomp_torch.core.types import DataType
 from tpucomp_torch.highlevel import headers as hdr
 from tpucomp_torch.highlevel import manager as tm
 
+import torch_manager_cases as mc
+
 CHUNK = 4096
 MANAGERS = {
     "lz4": (tm.LZ4Manager, jm.LZ4Manager),
@@ -207,6 +209,96 @@ def test_header_fields(rng):
     offs, szs = raw[:24].view("<u8"), raw[24:48].view("<u8")
     assert offs[0] == 0 and (offs[1:] == np.cumsum(szs)[:-1]).all() and offs[-1] + szs[-1] == head.comp_data_size
     assert not artifact[sec + 48 : head.comp_data_offset].any()  # reserved checksum sections
+
+
+# ---------------------------------------------------------------------------
+# the plain assembly and slicing: the edge behaviour the copy kernel is held to
+
+EDGE_SIZES = {"zero first": [0, 19], "zero last": [23, 0], "all zero": [0, 0], "one full": [24],
+              "zeros between": [7, 0, 0, 24, 1]}
+EDGE_ROW = 24
+
+
+def _edge_case(label):
+    return mc.synthetic(np.random.default_rng(len(label)), label, EDGE_SIZES[label], row=EDGE_ROW)
+
+
+def _assembled_by_hand(case):
+    """The artifact written out from the layout, in numpy."""
+    sizes = case.sizes.astype(np.int64)
+    offs = np.cumsum(sizes) - sizes
+    art = np.zeros(case.out_max, np.uint8)
+    art[: len(case.static_head)] = np.frombuffer(case.static_head, np.uint8)
+    art[8:16] = np.frombuffer(int(sizes.sum()).to_bytes(8, "little"), np.uint8)
+    so, k = case.sections_off, case.k
+    art[so : so + 16 * k] = np.concatenate([offs, sizes]).astype("<u8").view(np.uint8)
+    for i in range(k):
+        art[case.data_off + offs[i] : case.data_off + offs[i] + sizes[i]] = case.comp[i, : sizes[i]]
+    return art, case.data_off + int(sizes.sum())
+
+
+def _sliced_by_hand(art, case):
+    """Rows and sizes read byte by byte from the tables: each index
+    data_off + offset + t wraps as an int64 and is clamped into the
+    artifact; sizes are the tables' low 32 bits."""
+    k, so = case.k, case.sections_off
+    tables = art[so : so + 16 * k].copy().view("<u8").astype(object)
+    rows = np.zeros((k, case.max_chunk), np.uint8)
+    for i in range(k):
+        size = int(tables[k + i]) - (2**64 if tables[k + i] >= 2**63 else 0)
+        for t in range(min(max(size, 0), case.max_chunk)):
+            at = (case.data_off + int(tables[i]) + t + 2**63) % 2**64 - 2**63
+            rows[i, t] = art[min(max(at, 0), art.size - 1)]
+    sizes = np.array([int(v) % 2**32 for v in tables[k:]], np.uint64).astype(np.uint32).view(np.int32)
+    return rows, sizes
+
+
+@pytest.mark.parametrize("label", list(EDGE_SIZES))
+def test_assemble_places_zero_size_streams(label):
+    """Zero-size streams take no byte, the bytes past the streams stay 0,
+    and the artifact equals the layout written out by hand and tpucomp's
+    assembly of the same rows."""
+    case = _edge_case(label)
+    artifact, size = tm._assemble_artifact(torch.from_numpy(case.comp), torch.from_numpy(case.sizes),
+                                           case.static_head, **case.layout())
+    want, want_size = _assembled_by_hand(case)
+    assert size == want_size and artifact.numpy().tobytes() == want.tobytes()
+    assert not artifact[size:].any()
+    head = np.zeros(case.sections_off, np.uint8)
+    head[: len(case.static_head)] = np.frombuffer(case.static_head, np.uint8)
+    ref, ref_size = jm._assemble_artifact(jnp.asarray(case.comp), jnp.asarray(case.sizes), jnp.asarray(head),
+                                          **case.layout())
+    assert int(ref_size) == size and np.asarray(ref).tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("label", list(EDGE_SIZES))
+def test_slice_streams_gives_back_the_assembled_rows(label):
+    case = _edge_case(label)
+    artifact, size = tm._assemble_artifact(torch.from_numpy(case.comp), torch.from_numpy(case.sizes),
+                                           case.static_head, **case.layout())
+    artifact = artifact[:size]
+    rows, sizes = tm._slice_streams(artifact, hdr.CommonHeader.unpack(_bytes(artifact, 64)), case.sections_off,
+                                    case.max_chunk)
+    keep = np.arange(EDGE_ROW)[None, :] < case.sizes[:, None]
+    assert rows.numpy().tobytes() == np.where(keep, case.comp, 0).astype(np.uint8).tobytes()
+    assert sizes.dtype == torch.int32 and (sizes.numpy() == case.sizes).all()
+
+
+DAMAGE_CASE = _edge_case("zeros between")
+DAMAGED = dict(mc.damaged(DAMAGE_CASE, *_assembled_by_hand(DAMAGE_CASE)))
+
+
+@pytest.mark.parametrize("label", list(DAMAGED))
+def test_slice_streams_clamps_tables_that_point_past_the_end(label):
+    """Tables that point past the artifact's end, wrap, or give sizes the
+    rows cannot hold: every byte read from the index clamped into the
+    artifact, sizes cut to 32 bits, held to a byte-by-byte reading."""
+    case, art = DAMAGE_CASE, DAMAGED[label]
+    artifact = torch.from_numpy(art.copy())
+    rows, sizes = tm._slice_streams(artifact, hdr.CommonHeader.unpack(_bytes(artifact, 64)), case.sections_off,
+                                    case.max_chunk)
+    want_rows, want_sizes = _sliced_by_hand(art, case)
+    assert rows.numpy().tobytes() == want_rows.tobytes() and (sizes.numpy() == want_sizes).all()
 
 
 # ---------------------------------------------------------------------------

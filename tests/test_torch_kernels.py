@@ -196,7 +196,8 @@ def test_build_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
     assert sorted(p.name for p in _build._sources()) == ["a.cu"]
     assert {"tc_cascaded_encode", "tc_cascaded_decode", "tc_lz_match_table", "tc_lz_match_table_grid",
-            "tc_lz4_encode", "tc_lz4_decode", "tc_snappy_encode", "tc_snappy_decode"} == set(_build.SIGNATURES)
+            "tc_lz4_encode", "tc_lz4_decode", "tc_snappy_encode", "tc_snappy_decode", "tc_manager_pack",
+            "tc_manager_unpack"} == set(_build.SIGNATURES)
 
 
 def test_build_signatures_name_the_sources_entry_points():

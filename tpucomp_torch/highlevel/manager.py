@@ -16,17 +16,21 @@ write self-describing artifacts (counterpart of ``tpucomp.highlevel.manager``).
 Data stays on its device: ``compress`` takes bytes, a numpy array, a
 sequence of byte values or a tensor, and returns the artifact on the
 tensor's device, or on the manager's ``device`` (default ``"cuda"``) for
-host input; ``decompress`` likewise.  Placement indices are int64, so
-artifacts of 1 GiB and more need no switch.  The codecs route by device:
-a CUDA artifact goes through the kernels, a CPU one through the plain
-versions.
+host input; ``decompress`` likewise.  Routing is by device
+(``config.kernels_enabled``), for the codecs and for the artifact's own
+bytes alike: on the card, the assembly and the slicing are one launch
+each of the batched stream-copy kernel (``kernels/manager_cuda.py``,
+``csrc/manager_copy.cu``), which builds no index tensor; on the CPU they
+are the plain versions below, whose placement indices are int64, so
+artifacts of 1 GiB and more need no switch on either route.
 
 Spans of the port's tracer (``utils/profiling.py``): ``compress.manager``
 with ``.stage`` (flatten, pad, lengths) and ``.assemble``
 (``_assemble_artifact`` and its size read, timed on the device's clock);
 ``decompress.manager.open`` (``create_manager``'s header read); and
 ``decompress.manager`` with ``.read_header`` and ``.slice``
-(``_slice_streams``, timed on the device's clock).
+(``_slice_streams``, timed on the device's clock).  On the card each of
+``.assemble`` and ``.slice`` holds the copy kernel's ``.launch``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpucomp_torch import config
 from tpucomp_torch.core.options import CascadedOpts, LZ4Opts, SnappyOpts
 from tpucomp_torch.core.sizing import (
     cascaded_max_compressed_chunk_size,
@@ -94,7 +99,22 @@ def _assemble_artifact(comp: torch.Tensor, sizes: torch.Tensor, static_head: byt
     Writes the static header, comp_data_size (offset 8, u64 LE), the chunk
     offset and size tables (u64 LE each), and places every chunk's stream
     at ``data_off`` + the exclusive cumsum of the sizes before it.  The
-    checksum sections stay reserved zeros."""
+    checksum sections stay reserved zeros.  A batch on the card takes the
+    copy kernel (``manager_cuda.pack``), a CPU one ``_assemble_plain``."""
+    if config.kernels_enabled(comp.device):
+        from tpucomp_torch.kernels import manager_cuda
+
+        artifact, total = manager_cuda.pack(comp, sizes, static_head, data_off=data_off,
+                                            sections_off=sections_off, out_max=out_max)
+        return artifact, data_off + int(total)
+    return _assemble_plain(comp, sizes, static_head, data_off=data_off, sections_off=sections_off,
+                           out_max=out_max)
+
+
+def _assemble_plain(comp: torch.Tensor, sizes: torch.Tensor, static_head: bytes, *,
+                    data_off: int, sections_off: int, out_max: int):
+    """``_assemble_artifact``'s plain version, on any device: one int64
+    target a byte of the rows and one ``index_put_``."""
     k, row = comp.shape
     dev = comp.device
     sizes = sizes.to(torch.int64)
@@ -113,7 +133,18 @@ def _assemble_artifact(comp: torch.Tensor, sizes: torch.Tensor, static_head: byt
 def _slice_streams(artifact: torch.Tensor, common: hdr.CommonHeader, sections_off: int, max_chunk: int):
     """(rows uint8[k, max_chunk], sizes int32[k]): every chunk's stream cut
     out of the packed region by the u64 offset and size tables, zero past
-    its size."""
+    its size.  An artifact on the card takes the copy kernel
+    (``manager_cuda.unpack``), a CPU one ``_slice_plain``."""
+    if config.kernels_enabled(artifact.device):
+        from tpucomp_torch.kernels import manager_cuda
+
+        return manager_cuda.unpack(artifact, common.num_chunks, common.comp_data_offset, sections_off, max_chunk)
+    return _slice_plain(artifact, common, sections_off, max_chunk)
+
+
+def _slice_plain(artifact: torch.Tensor, common: hdr.CommonHeader, sections_off: int, max_chunk: int):
+    """``_slice_streams``' plain version, on any device: one int64 source
+    index a byte of the rows, clamped into the artifact, and a gather."""
     k = common.num_chunks
     dev = artifact.device
     tables = artifact[sections_off : sections_off + 16 * k].view(2, k, 8).to(torch.int64)

@@ -56,6 +56,11 @@ SIGNATURES = {
     # comp, comp_sizes, out, lengths, status, batch, row_bytes, out_capacity,
     # scratch, slots, counter, stream
     "tc_snappy_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _P, _P],
+    # comp, sizes, inc, artifact, k, row, head, head_bytes, sections_off, data_off, out_max,
+    # counter, stream
+    "tc_manager_pack": [_P, _P, _P, _P, _L, _L, _P, _I, _L, _L, _L, _P, _P],
+    # artifact, rows, sizes, numel, k, max_chunk, sections_off, data_off, counter, stream
+    "tc_manager_unpack": [_P, _P, _P, _L, _L, _L, _L, _L, _P, _P],
 }
 
 

@@ -37,7 +37,8 @@ batch API (``lowlevel/api.py``)        ``compress.api``, ``decompress.api``
 managers (``highlevel/manager.py``)    ``compress.manager`` (``.stage``, ``.assemble``, device-timed);
                                        ``decompress.manager.open`` (``create_manager``'s header read);
                                        ``decompress.manager`` (``.read_header``, ``.slice``,
-                                       device-timed)
+                                       device-timed); on the card ``.assemble`` and ``.slice`` hold
+                                       the copy kernel's ``.launch``
 codec routing (``codecs/*.py``)        ``<phase>.lz4``, ``<phase>.snappy``, ``<phase>.cascaded``
 kernel wrappers (``kernels/*_cuda.py``) ``compress.<lz4|snappy>.table``, ``compress.<codec>.encode``,
                                        ``decompress.<codec>.decode``, each with a ``.launch`` child
@@ -56,7 +57,9 @@ completed), ``snappy.decode.elements`` (elements the decode walk
 completed), and the match-table kernel's, for rows of up to 64 KB (LZ4
 and Snappy alike): ``lz.table.positions`` (the valid positions it grouped)
 and ``lz.table.large_bucket_positions`` (those in buckets of more than 32,
-which it sorts).
+which it sorts); the managers' copy kernel's ``manager.pack.bytes`` and
+``manager.unpack.bytes`` (the stream bytes each entry point copied: an
+artifact's ``comp_data_size`` a sound call).
 
 ``wall`` times each call of a function between two CUDA events on the
 current stream, after warm-up, and reports the median, min and max; it
@@ -91,6 +94,8 @@ COUNTERS = (
     "snappy.decode.elements",
     "lz.table.positions",
     "lz.table.large_bucket_positions",  # the kernel adds to the slot after lz.table.positions
+    "manager.pack.bytes",
+    "manager.unpack.bytes",
 )
 _SLOT = {name: i for i, name in enumerate(COUNTERS)}
 _NULL = contextlib.nullcontext()
