@@ -7,8 +7,8 @@ Run from the repository root with no arguments::
 
 It drives the port's main paths, Cascaded, LZ4, Snappy and the high-level
 managers, then the host surface above them (the routing flag, sharding,
-multihost, the CLI, native staging), the batch-API conformance matrix,
-the bench and the examples, in phases, each printing one line (any
+multihost, the CLI, native staging), the batch-API conformance matrix
+and the examples, in phases, each printing one line (any
 failure raises and exits non-zero):
 
 1. device: the card's name, and its power limit from nvidia-smi
@@ -138,13 +138,6 @@ failure raises and exits non-zero):
    decoded rows equal to the plain versions (tolerance 0); garbage rows
    give only SUCCESS or ERROR_CANNOT_DECOMPRESS, length 0 where decode
    failed
-21. bench: ``python -m tpucomp_torch.bench --codec main`` and ``--codec
-   snappy`` as subprocesses (every cell at 256 MB): exit codes, the last
-   lines parsed, every round trip exact, each cell's kernels launched;
-   the Cascaded cells' whole calls held to phase 5's kernel medians (below
-   0.9 x is an impossible reading and fails), each cell's times printed
-   beside its kernels' (the LZ cells beside phases 8 and 12, on another
-   rotation of the corpus)
 22. examples: examples/torch_round_trip.py and examples/torch_distributed.py
    run on the card as subprocesses, exit code 0 (their asserts held)
 23. tracer (run right after phase 9): the port's spans and counters
@@ -1666,83 +1659,6 @@ def phase_conformance(dev, counters, paths, smi):
     return err, rows
 
 
-BENCH_MODES = ("main", "snappy")  # between them, every cell of the bench
-
-
-def phase_bench(times, lz4_times, snappy_times, smi):
-    """``python -m tpucomp_torch.bench --codec main`` and ``--codec snappy``
-    as subprocesses: exit code 0, one JSON line, every cell at 256 MB with
-    an exact round trip and its codec's kernels launched (and no other's),
-    the card's name and power limit.  The Cascaded cells hold phase 4-5's
-    bytes: a whole call that reads below 0.9 x its kernel's median from
-    phase 5 is an impossible reading and fails.  Returns the bench lines
-    by mode."""
-    import torch
-
-    lines = {}
-    t_phase = time.perf_counter()
-    for mode in BENCH_MODES:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "tpucomp_torch.bench", "--codec", mode], cwd=ROOT,
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"bench --codec {mode} exited {proc.returncode}: {proc.stderr[-3000:]}")
-        out = proc.stdout.strip().splitlines()
-        line = json.loads(out[-1])
-        lines[mode] = line
-        dev_info = line["device"]
-        if dev_info["platform"] != "gpu" or dev_info["kind"] != torch.cuda.get_device_name(0) or \
-                not dev_info["power_limit"]:
-            raise AssertionError(f"bench --codec {mode}: device {dev_info}")
-        print(f"phase 21 bench --codec {mode} ({time.perf_counter() - t0:.1f} s, build {line['build_s']:.2f} s): "
-              f"value {line['value']:.4f} {line['unit']}, vs_baseline {line['vs_baseline']}, "
-              f"device {dev_info['kind']}, {dev_info['power_limit']}", flush=True)
-        _bench_cells(line, times, lz4_times, snappy_times)
-    print(f"  phase 21 subprocesses: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return lines
-
-
-def _bench_cells(line, times, lz4_times, snappy_times):
-    """Check each cell of one bench line and print its whole-call times
-    beside the kernels' times of phases 5, 8 and 12."""
-    import tpucomp_torch.bench as tb
-
-    kernels = {"cascaded": {"cascaded.encode", "cascaded.decode"},
-               "lz4": {"lz77.table", "lz4.encode", "lz4.decode"},
-               "snappy": {"lz77.table", "snappy.encode", "snappy.decode"}}
-    kernel_times = {"cascaded": times["mixed"], "cascaded-runheavy": times["runheavy"]}
-    for cell, r in line["cells"].items():
-        want = {k: tb.WARMUP + tb.ITERS + (2 if k.endswith(("encode", "table")) else 1)
-                for k in kernels[r["codec"]]}
-        if not r["roundtrip_ok"] or r["bytes"] != B * C or r["launches"] != want:
-            raise AssertionError(f"bench {cell}: round trip {r['roundtrip_ok']}, {r['bytes']} bytes, "
-                                 f"launches {r['launches']} (want {want})")
-        text = (f"  {cell} (seed {r['seed']}): whole calls encode {r['encode_ms']:.3f} ms (min "
-                f"{r['encode_min_ms']:.3f}, max {r['encode_max_ms']:.3f}), decode {r['decode_ms']:.3f} ms (min "
-                f"{r['decode_min_ms']:.3f}, max {r['decode_max_ms']:.3f}); {r['encode_gbps']:.3f} / "
-                f"{r['decode_gbps']:.3f} GB/s, ratio {r['ratio']:.4f}, peak memory of a compress "
-                f"{r['peak_compress_bytes'] / 1e6:.1f} MB; launches {r['launches']}")
-        if cell in kernel_times:
-            kt = kernel_times[cell]
-            for k in ("encode", "decode"):
-                if r[f"{k}_ms"] < 0.9 * kt[f"kernel_{k}"]["median_ms"]:
-                    raise AssertionError(f"bench {cell}: a whole {k} call reads {r[f'{k}_ms']:.3f} ms, below "
-                                         f"0.9 x its kernel's {kt[f'kernel_{k}']['median_ms']:.3f} ms (phase 5)")
-            text += (f"; phase 5's kernels on the same bytes: encode {kt['kernel_encode']['median_ms']:.3f} "
-                     f"ms, decode {kt['kernel_decode']['median_ms']:.3f} ms")
-        elif cell in ("lz4", "snappy"):
-            kt = {"lz4": lz4_times, "snappy": snappy_times}[cell]["mixed"]
-            text += (f"; phase {8 if cell == 'lz4' else 12}'s kernels on mixed seed 0, another rotation of "
-                     f"the corpus: table {kt['kernel_table']['median_ms']:.3f} + encode "
-                     f"{kt['kernel_encode']['median_ms']:.3f} ms, whole compress {kt['compress']['median_ms']:.3f}"
-                     f" ms, decode {kt['kernel_decode']['median_ms']:.3f} ms")
-        if "copy_gbps" in r:
-            text += (f"; ceiling (median over {tb.CEILING_GROUPS} groups of {tb.ITERS}): aligned copy "
-                     f"{r['copy_ms']:.3f} ms ({r['copy_gbps']:.1f} GB/s), the JAX bench's shifted copy "
-                     f"{r['memcpy_ms']:.3f} ms ({r['memcpy_gbps']:.1f} GB/s)")
-        print(text, flush=True)
-
-
 EXAMPLES = ("torch_round_trip.py", "torch_distributed.py")
 
 
@@ -1876,7 +1792,6 @@ def main() -> int:
             "multihost": phase_multihost(smi),
             "cli_native": phase_cli_native(corpora, smi)}
     conformance_err, conformance_rows = phase_conformance(dev, counters, paths, smi)
-    bench_lines = phase_bench(times, lz4_times, snappy_times, smi)
     examples = phase_examples(smi)
 
     kernels = []
@@ -1936,8 +1851,6 @@ def main() -> int:
     print(f"  host surface: {json.dumps(host)}", flush=True)
     print(f"  conformance: {json.dumps({'rows_by_codec': conformance_rows, 'max_abs_err': conformance_err})}",
           flush=True)
-    for mode, line in bench_lines.items():
-        print(f"  bench --codec {mode}: {json.dumps(line)}", flush=True)
     print(f"  tracer counters: {json.dumps(tracer_counts)}", flush=True)
     print(f"  examples: {json.dumps(examples)}", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -55,10 +55,15 @@ def test_w8_profiles_identical(label, fields, arr, lens):
         assert_decode_equal(port_decompress(f, rows, szs, c), jax_decompress(f, rows, szs, c), label)
 
 
-SIZING_OPTS = [dict(type=t, chunk_size=cs, num_rles=nr, num_deltas=nd, use_bp=bp)
-               for t in W8_TYPES
-               for cs, nr, nd, bp in ((4096, 2, 1, True), (512, 7, 7, True), (16384, 0, 1, False),
-                                      (8192, 1, 0, True))]
+SIZING_SETS = ((4096, 2, 1, True), (512, 7, 7, True), (16384, 0, 1, False), (8192, 1, 0, True))
+# every option set for the 8-byte types; one each for the narrower types,
+# which hold the bound that core/sizing.py gives every width
+SIZING_OPTS = ([dict(type=t, chunk_size=cs, num_rles=nr, num_deltas=nd, use_bp=bp)
+                for t in W8_TYPES for cs, nr, nd, bp in SIZING_SETS]
+               + [dict(type=t, chunk_size=cs, num_rles=nr, num_deltas=nd, use_bp=bp)
+                  for t, (cs, nr, nd, bp) in zip((torch_cases.CHAR, torch_cases.UCHAR, torch_cases.SHORT,
+                                                   torch_cases.USHORT, torch_cases.INT, torch_cases.UINT),
+                                                  SIZING_SETS * 2)])
 
 
 @pytest.mark.parametrize("fields", SIZING_OPTS, ids=lambda f: "-".join(str(v) for v in f.values()))
@@ -70,9 +75,12 @@ def test_w8_sizing_agrees_between_the_packages(fields):
         assert tcc.partition_output_max(c, o) == jcc.partition_output_max(c, jo), c
         assert (tpucomp_torch.cascaded_codec.compress_get_max_output_chunk_size(c, o)
                 == tpucomp.cascaded_codec.compress_get_max_output_chunk_size(c, jo)), c
-        # the slack word: PMAX is 4 bytes above the cap, rounded to 8
         cap = tpucomp_torch.cascaded_codec.compress_get_max_output_chunk_size(c, o)
-        assert tcc.partition_output_max(c, o) == (cap + 4 + 7) // 8 * 8
+        if torch_cases.WIDTH[fields["type"]] == 8:
+            # the slack word: PMAX is 4 bytes above the cap, rounded to 8
+            assert tcc.partition_output_max(c, o) == (cap + 4 + 7) // 8 * 8
+        else:
+            assert tcc.partition_output_max(c, o) == cap
 
 
 def _within_the_cap(fields, arr, lens):

@@ -27,7 +27,7 @@ from tpucomp.kernels import lz_pallas, snappy_pallas
 
 import tpucomp_torch
 from tpucomp_torch.core import options as topts
-from tpucomp_torch.core.types import DataType
+from tpucomp_torch.core.types import DataType, Status
 from tpucomp_torch.highlevel import headers as hdr
 from tpucomp_torch.highlevel import manager as tm
 
@@ -170,13 +170,31 @@ def test_tiny_and_boundary_sizes(rng, n):
             assert out.numpy().tobytes() == payload, name
 
 
-def test_empty_buffer(rng):
-    for name in ("lz4", "snappy"):
-        artifact, size = _port(name).compress(b"")
-        ref, ref_size = _ref(name).compress(b"")
-        assert size == int(ref_size) and _bytes(artifact) == _bytes(ref), name
-        out, statuses = tm.create_manager(artifact).decompress(artifact)
-        assert out.numel() == 0 and statuses.shape == (1,) and not statuses.any()
+@pytest.mark.parametrize("name", list(MANAGERS))
+def test_empty_buffer(name):
+    """An empty buffer gives tpucomp's artifact and decodes to nothing, with
+    tpucomp's status: SUCCESS for LZ4 and Snappy, ERROR_CANNOT_DECOMPRESS
+    for Cascaded."""
+    artifact, size = _port(name).compress(b"")
+    ref, ref_size = _ref(name).compress(b"")
+    assert size == int(ref_size) and _bytes(artifact) == _bytes(ref)
+    out, statuses = tm.create_manager(artifact).decompress(artifact)
+    want = Status.ERROR_CANNOT_DECOMPRESS if name == "cascaded" else Status.SUCCESS
+    assert out.numel() == 0 and statuses.tolist() == [want]
+    if name == "cascaded":  # tpucomp's LZ decoders take seconds to compile here
+        assert np.asarray(_ref(name).decompress(ref)[1]).tolist() == [want]
+
+
+def test_cascaded_chunk_of_no_whole_elements_does_not_decode(rng):
+    """CascadedManager(uncomp_chunk_size=4097) on INT writes tpucomp's
+    artifact, but its chunk is not a whole number of elements, so the
+    decode's output capacity is refused (tpucomp fails inside its trace)."""
+    payload = _payload(rng, 9000)
+    artifact, size = tm.CascadedManager(uncomp_chunk_size=4097, device="cpu").compress(payload)
+    ref, ref_size = jm.CascadedManager(uncomp_chunk_size=4097).compress(payload)
+    assert size == int(ref_size) and _bytes(artifact) == _bytes(ref)
+    with pytest.raises(ValueError, match="out_capacity must be a multiple of the element width"):
+        tm.create_manager(artifact).decompress(artifact)
 
 
 def test_compress_takes_bytes_arrays_sequences_and_tensors(payload):

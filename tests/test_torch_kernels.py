@@ -14,12 +14,20 @@ import pytest
 import torch
 
 from tpucomp_torch.codecs import cascaded as cc
-from tpucomp_torch.core.options import CascadedOpts, opts_from_fields
+from tpucomp_torch.codecs import lz4 as tl
+from tpucomp_torch.codecs import lz77
+from tpucomp_torch.codecs import snappy as ts
+from tpucomp_torch.core.options import CascadedOpts, LZ4Opts, opts_from_fields
 from tpucomp_torch.core.types import DataType
 from tpucomp_torch.kernels import _build
 from tpucomp_torch.kernels import cascaded_cuda as kc
+from tpucomp_torch.kernels import lz4_cuda as kl
+from tpucomp_torch.kernels import lz77_cuda
+from tpucomp_torch.kernels import manager_cuda as km
+from tpucomp_torch.kernels import snappy_cuda as ks
 
 import torch_cases
+import torch_manager_cases as mc
 
 CASES = torch_cases.kernel_cases()
 
@@ -159,20 +167,76 @@ def test_cpu_tensors_never_touch_the_kernels():
     assert kc.LAUNCHES == before
 
 
-def test_wrappers_refuse_what_the_kernels_do_not_take():
-    """Only CUDA tensors reach the wrappers' launch; there is no fallback to
-    the plain version (a tensor on neither CPU nor CUDA raises through the
-    public entry point too)."""
+def _launch_calls():
+    """entry point -> (its module's LAUNCHES, the key, a call of its wrapper
+    on CPU tensors of shapes the kernel takes)."""
     data = torch.zeros(2, 64, dtype=torch.uint8)
     lengths = torch.full((2,), 64, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kc.compress(data, lengths, CascadedOpts())
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kc.decompress(data, lengths, CascadedOpts(), 64)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        cc.compress(data.to("meta"), lengths.to("meta"), CascadedOpts())
-    with pytest.raises(ValueError, match="multiple of the element width"):
-        cc.decompress(data, lengths, CascadedOpts(), 63)
+    table = torch.zeros(2, 64, dtype=torch.uint16)
+    case = mc.shape_cases()[0]
+    comp, sizes = torch.from_numpy(case.comp), torch.from_numpy(case.sizes)
+    return {
+        "tc_cascaded_encode": (kc.LAUNCHES, "encode", lambda: kc.compress(data, lengths, CascadedOpts())),
+        "tc_cascaded_decode": (kc.LAUNCHES, "decode", lambda: kc.decompress(data, lengths, CascadedOpts(), 64)),
+        "tc_lz_match_table": (lz77_cuda.LAUNCHES, "table",
+                              lambda: lz77_cuda.match_table(data, lengths, 1, lz77.MAX_OFFSET, lz77.LAST_VALID_MATCH)),
+        "tc_lz4_encode": (kl.LAUNCHES, "encode", lambda: kl.encode(data, lengths, table)),
+        "tc_lz4_decode": (kl.LAUNCHES, "decode", lambda: kl.decompress(data, lengths, 64)),
+        "tc_snappy_encode": (ks.LAUNCHES, "encode", lambda: ks.encode(data, lengths, table)),
+        "tc_snappy_decode": (ks.LAUNCHES, "decode", lambda: ks.decompress(data, lengths, 64)),
+        "tc_manager_pack": (km.LAUNCHES, "pack", lambda: km.pack(comp, sizes, case.static_head, **case.layout())),
+        "tc_manager_unpack": (km.LAUNCHES, "unpack", lambda: km.unpack(torch.zeros(4096, dtype=torch.uint8), 1,
+                                                                      case.data_off, case.sections_off,
+                                                                      case.max_chunk)),
+    }
+
+
+LAUNCH_ENTRY_POINTS = [name for name in _build.SIGNATURES if name != "tc_lz_match_table_grid"]
+
+
+@pytest.mark.parametrize("entry", LAUNCH_ENTRY_POINTS)
+def test_wrappers_refuse_cpu_tensors_before_any_launch(entry, monkeypatch):
+    """Only CUDA tensors reach a launch: each wrapper refuses a CPU tensor,
+    naming its entry point, before it loads the library or launches, and
+    counts nothing.  There is no fallback to the plain version here."""
+    def no_library(*args):
+        raise AssertionError("a wrapper reached the library with a CPU tensor")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    monkeypatch.setattr(_build, "launch", no_library)
+    calls = _launch_calls()
+    assert sorted(calls) == sorted(LAUNCH_ENTRY_POINTS)
+    launches, key, call = calls[entry]
+    before = launches[key]
+    with pytest.raises(ValueError, match=f"the {entry} kernel takes CUDA tensors, got one on cpu"):
+        call()
+    assert launches[key] == before
+
+
+def _data():
+    return torch.zeros(2, 64, dtype=torch.uint8), torch.full((2,), 64, dtype=torch.int32)
+
+
+REFUSALS = {
+    "cascaded": [(lambda d, n: cc.compress(d.to("meta"), n.to("meta"), CascadedOpts()), "CUDA tensors"),
+                 (lambda d, n: cc.decompress(d, n, CascadedOpts(), 63), "multiple of the element width")],
+    "lz4": [(lambda d, n: tl.decompress(d.to("meta"), n.to("meta"), out_capacity=64), "CUDA tensors"),
+            (lambda d, n: tl.compress(d.to(torch.int32), n), "uint8"),
+            (lambda d, n: tl.compress(d, n, LZ4Opts(data_type=DataType.LONGLONG)), "1, 2 or 4 bytes")],
+    "snappy": [(lambda d, n: ts.decompress(d.to("meta"), n.to("meta"), out_capacity=64), "CUDA tensors"),
+               (lambda d, n: ts.compress(d.to(torch.int32), n), "uint8"),
+               (lambda d, n: ts.decompress(d, n, out_capacity=0), "out_capacity")],
+}
+
+
+@pytest.mark.parametrize("codec", list(REFUSALS))
+def test_public_entry_points_refuse_what_no_route_takes(codec):
+    """Through a codec's public entry points, a batch on neither the CPU nor
+    a card reaches the kernel wrapper and is refused there, and the plain
+    route refuses what the format does not take."""
+    for call, match in REFUSALS[codec]:
+        with pytest.raises(ValueError, match=match):
+            call(*_data())
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):

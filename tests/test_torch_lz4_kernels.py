@@ -284,24 +284,3 @@ def test_cpu_tensors_never_touch_the_lz4_kernels():
     out, nbytes, status = tl.decompress(comp, sizes, out_capacity=4096)
     assert not status.any() and torch.equal(nbytes, torch.from_numpy(lens))
     assert kl.LAUNCHES == before and lz77_cuda.LAUNCHES["table"] == table_before
-
-
-def test_lz4_wrappers_refuse_what_the_kernels_do_not_take():
-    """Only CUDA tensors reach the wrappers' launch; there is no fallback to
-    the plain version (a tensor on neither CPU nor CUDA raises through the
-    public entry point too)."""
-    data = torch.zeros(2, 64, dtype=torch.uint8)
-    lengths = torch.full((2,), 64, dtype=torch.int32)
-    table = torch.zeros(2, 64, dtype=torch.uint16)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _table(data, lengths, 2)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kl.encode(data, lengths, table)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kl.decompress(data, lengths, 64)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        tl.decompress(data.to("meta"), lengths.to("meta"), out_capacity=64)
-    with pytest.raises(ValueError, match="uint8"):
-        tl.compress(data.to(torch.int32), lengths)
-    with pytest.raises(ValueError, match="1, 2 or 4 bytes"):
-        tl.compress(data, lengths, LZ4Opts(data_type=DataType.LONGLONG))

@@ -181,15 +181,6 @@ def test_unpack_refuses_an_artifact_that_ends_inside_its_tables(cuda):
 # ---- on the CPU: the routing
 
 
-def test_wrappers_refuse_cpu_tensors():
-    case = mc.shape_cases()[0]
-    comp, sizes = torch.from_numpy(case.comp), torch.from_numpy(case.sizes)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
-        km.pack(comp, sizes, case.static_head, **case.layout())
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
-        km.unpack(torch.zeros(4096, dtype=torch.uint8), 1, case.data_off, case.sections_off, case.max_chunk)
-
-
 @pytest.mark.parametrize("name", list(mc.MANAGERS))
 def test_cpu_managers_take_the_plain_versions(name):
     """A manager on the CPU launches nothing: its artifact is the plain

@@ -243,24 +243,3 @@ def test_cpu_tensors_never_touch_the_snappy_kernels():
     out, nbytes, status = ts.decompress(comp, sizes, out_capacity=4096)
     assert not status.any() and torch.equal(nbytes, torch.from_numpy(lens))
     assert ks.LAUNCHES == before and lz77_cuda.LAUNCHES["table"] == table_before
-
-
-def test_snappy_wrappers_refuse_what_the_kernels_do_not_take():
-    """Only CUDA tensors reach the wrappers' launch; there is no fallback to
-    the plain version (a tensor on neither CPU nor CUDA raises through the
-    public entry points too)."""
-    data = torch.zeros(2, 64, dtype=torch.uint8)
-    lengths = torch.full((2,), 64, dtype=torch.int32)
-    table = torch.zeros(2, 64, dtype=torch.uint16)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _table(data, lengths)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ks.encode(data, lengths, table)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ks.decompress(data, lengths, 64)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ts.decompress(data.to("meta"), lengths.to("meta"), out_capacity=64)
-    with pytest.raises(ValueError, match="uint8"):
-        ts.compress(data.to(torch.int32), lengths)
-    with pytest.raises(ValueError, match="out_capacity"):
-        ts.decompress(data, lengths, out_capacity=0)

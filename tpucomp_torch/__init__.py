@@ -14,6 +14,13 @@ process), ``parallel.multihost`` (one process per card on
 ``native`` (a g++-built host library for staging) and the
 ``lowlevel.stubs`` slots.
 
+Layers, from the entry points down; each imports only the layers below
+it: ``lowlevel`` (the batch API) and ``highlevel`` (the managers) ->
+``codecs`` (routing by device; the plain PyTorch versions, with ``ops``)
+-> ``kernels`` (a wrapper module a kernel source, ``*_cuda.py``, and
+``_build.py``, which builds the library and launches every entry point
+through one helper) -> ``core`` and ``utils``.
+
 Quick start::
 
     from tpucomp_torch import pack_chunks, unpack_chunks, cascaded_codec, lz4_codec, snappy_codec

@@ -32,15 +32,14 @@ import torch
 
 from tpucomp_torch import config
 from tpucomp_torch.core.options import CascadedOpts
-from tpucomp_torch.core.sizing import round_up_to
+from tpucomp_torch.core.sizing import PARTITION_HEADER, partition_output_max, round_up_to
 from tpucomp_torch.core.types import DataType, Status, width_of
+from tpucomp_torch.kernels import cascaded_cuda
 from tpucomp_torch.ops import bitpack as bp
 from tpucomp_torch.ops import delta as dl
 from tpucomp_torch.ops import rle as rl
 from tpucomp_torch.utils import bits, permute
 from tpucomp_torch.utils.profiling import span
-
-PARTITION_HEADER = 8
 
 
 def chunk_metadata_size(opts: CascadedOpts) -> int:
@@ -68,19 +67,6 @@ def chunk_output_max(opts: CascadedOpts) -> int:
         + round_up_to(_final_blob_max(opts), 4)
     )
     return round_up_to(total + w, max(4, w))
-
-
-def partition_output_max(capacity_bytes: int, opts: CascadedOpts) -> int:
-    """Output buffer bytes per partition.
-
-    The fallback rule caps every emitted partition at roundUp4(n) + 8
-    bytes.  For w == 8 the final chunk's element-width trailing pad can push
-    a non-fallback partition up to 4 bytes past the cap (the fallback check
-    tracks blob ends, not the trailing pad), hence the slack word.
-    """
-    w = width_of(opts.type)
-    slack = 4 if w == 8 else 0
-    return round_up_to(PARTITION_HEADER + round_up_to(capacity_bytes, 4) + slack, max(4, w))
 
 
 def _schedule(opts: CascadedOpts):
@@ -463,8 +449,6 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: CascadedOpts):
         opts.validate()
         if not config.kernels_enabled(data.device):
             return _compress_plain(data, lengths, opts)
-        from tpucomp_torch.kernels import cascaded_cuda
-
         return cascaded_cuda.compress(data, lengths, opts)
 
 
@@ -482,8 +466,6 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: CascadedOpts,
         opts.validate()
         if not config.kernels_enabled(comp.device):
             return _decompress_plain(comp, comp_sizes, opts, out_capacity)
-        from tpucomp_torch.kernels import cascaded_cuda
-
         return cascaded_cuda.decompress(comp, comp_sizes, opts, out_capacity)
 
 

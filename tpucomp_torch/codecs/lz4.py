@@ -37,6 +37,7 @@ from tpucomp_torch.codecs import lz77
 from tpucomp_torch.core.options import LZ4Opts
 from tpucomp_torch.core.sizing import lz4_max_compressed_chunk_size
 from tpucomp_torch.core.types import Status, width_of
+from tpucomp_torch.kernels import lz4_cuda, lz77_cuda
 from tpucomp_torch.utils import permute
 from tpucomp_torch.utils.profiling import span
 
@@ -236,8 +237,6 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: LZ4Opts | None = N
         lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
         if not config.kernels_enabled(data.device):
             return _compress_plain(data, lengths, stride)
-        from tpucomp_torch.kernels import lz4_cuda, lz77_cuda
-
         data = data.contiguous()
         table = lz77_cuda.match_table(data, lengths, stride, lz77.MAX_OFFSET, lz77.LAST_VALID_MATCH)
         return lz4_cuda.encode(data, lengths, table)
@@ -262,8 +261,6 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: LZ4Opts | Non
             raise ValueError("out_capacity must be at least 1")
         if not config.kernels_enabled(comp.device):
             return _decompress_plain(comp, comp_sizes, out_capacity)
-        from tpucomp_torch.kernels import lz4_cuda
-
         return lz4_cuda.decompress(comp, comp_sizes, out_capacity)
 
 

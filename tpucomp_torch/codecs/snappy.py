@@ -37,6 +37,7 @@ from tpucomp_torch.codecs import lz77
 from tpucomp_torch.core.options import SnappyOpts
 from tpucomp_torch.core.sizing import snappy_max_compressed_chunk_size
 from tpucomp_torch.core.types import Status
+from tpucomp_torch.kernels import lz77_cuda, snappy_cuda
 from tpucomp_torch.utils import permute
 from tpucomp_torch.utils.profiling import span
 
@@ -281,8 +282,6 @@ def compress(data: torch.Tensor, lengths: torch.Tensor, opts: SnappyOpts | None 
         lengths = lengths.to(torch.int32).clamp(0, data.shape[1])
         if not config.kernels_enabled(data.device):
             return _compress_plain(data, lengths)
-        from tpucomp_torch.kernels import lz77_cuda, snappy_cuda
-
         data = data.contiguous()
         table = lz77_cuda.match_table(data, lengths, 1, MAX_OFFSET, MIN_MATCH)
         return snappy_cuda.encode(data, lengths, table)
@@ -306,8 +305,6 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, opts: SnappyOpts | 
             raise ValueError("out_capacity must be at least 1")
         if not config.kernels_enabled(comp.device):
             return _decompress_plain(comp, comp_sizes, out_capacity)
-        from tpucomp_torch.kernels import snappy_cuda
-
         return snappy_cuda.decompress(comp, comp_sizes, out_capacity)
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from tpucomp_torch import config
+from tpucomp_torch.codecs import cascaded, lz4, snappy
 from tpucomp_torch.core.options import CascadedOpts, LZ4Opts, SnappyOpts
 from tpucomp_torch.core.sizing import (
     cascaded_max_compressed_chunk_size,
@@ -48,6 +49,7 @@ from tpucomp_torch.core.sizing import (
     snappy_max_compressed_chunk_size,
 )
 from tpucomp_torch.highlevel import headers as hdr
+from tpucomp_torch.kernels import manager_cuda
 from tpucomp_torch.utils import permute
 from tpucomp_torch.utils.profiling import span
 
@@ -102,8 +104,6 @@ def _assemble_artifact(comp: torch.Tensor, sizes: torch.Tensor, static_head: byt
     checksum sections stay reserved zeros.  A batch on the card takes the
     copy kernel (``manager_cuda.pack``), a CPU one ``_assemble_plain``."""
     if config.kernels_enabled(comp.device):
-        from tpucomp_torch.kernels import manager_cuda
-
         artifact, total = manager_cuda.pack(comp, sizes, static_head, data_off=data_off,
                                             sections_off=sections_off, out_max=out_max)
         return artifact, data_off + int(total)
@@ -136,8 +136,6 @@ def _slice_streams(artifact: torch.Tensor, common: hdr.CommonHeader, sections_of
     its size.  An artifact on the card takes the copy kernel
     (``manager_cuda.unpack``), a CPU one ``_slice_plain``."""
     if config.kernels_enabled(artifact.device):
-        from tpucomp_torch.kernels import manager_cuda
-
         return manager_cuda.unpack(artifact, common.num_chunks, common.comp_data_offset, sections_off, max_chunk)
     return _slice_plain(artifact, common, sections_off, max_chunk)
 
@@ -245,13 +243,9 @@ class LZ4Manager(Manager):
         super().__init__(uncomp_chunk_size, opts or LZ4Opts(), device)
 
     def _codec_compress(self, data, lengths):
-        from tpucomp_torch.codecs import lz4
-
         return lz4.compress(data, lengths)
 
     def _codec_decompress(self, comp, sizes, out_capacity):
-        from tpucomp_torch.codecs import lz4
-
         return lz4.decompress(comp, sizes, out_capacity=out_capacity)
 
     def _max_comp_chunk_size(self, chunk_bytes: int) -> int:
@@ -265,13 +259,9 @@ class SnappyManager(Manager):
         super().__init__(uncomp_chunk_size, opts or SnappyOpts(), device)
 
     def _codec_compress(self, data, lengths):
-        from tpucomp_torch.codecs import snappy
-
         return snappy.compress(data, lengths)
 
     def _codec_decompress(self, comp, sizes, out_capacity):
-        from tpucomp_torch.codecs import snappy
-
         return snappy.decompress(comp, sizes, out_capacity=out_capacity)
 
     def _max_comp_chunk_size(self, chunk_bytes: int) -> int:
@@ -280,7 +270,9 @@ class SnappyManager(Manager):
 
 class CascadedManager(Manager):
     """Cascaded artifacts: the manager's chunk is the codec's partition;
-    ``opts.chunk_size`` is the scheme's internal chunk."""
+    ``opts.chunk_size`` is the scheme's internal chunk.  A tail shorter
+    than one element is dropped, as tpucomp drops it: its bytes read back
+    as zeros, and the status is still SUCCESS."""
 
     format_id = hdr.FORMAT_CASCADED
 
@@ -288,13 +280,9 @@ class CascadedManager(Manager):
         super().__init__(uncomp_chunk_size, opts or CascadedOpts(), device)
 
     def _codec_compress(self, data, lengths):
-        from tpucomp_torch.codecs import cascaded
-
         return cascaded.compress(data, lengths, self.opts)
 
     def _codec_decompress(self, comp, sizes, out_capacity):
-        from tpucomp_torch.codecs import cascaded
-
         return cascaded.decompress(comp, sizes, self.opts, out_capacity)
 
     def _max_comp_chunk_size(self, chunk_bytes: int) -> int:

@@ -1,15 +1,25 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 All ``tpucomp_torch/csrc/*.cu`` sources are compiled by ``nvcc`` for
 Hopper (``sm_90a``), one ``nvcc`` process per source, all started
 together, and linked into one shared library with a plain C interface,
 ``tpucomp_torch/_build/libtpucomp_kernels-<hash>.so``, at first use, and
-loaded with ``ctypes``.  The kernels that count (``utils/profiling.py``)
-take the address of their counters as the argument before the stream, null
-while tracing is off.  ``ptxas``'s report of each kernel's registers and
+loaded with ``ctypes``.  ``ptxas``'s report of each kernel's registers and
 shared memory goes beside it, into ``<hash>.log``.  The hash covers every source and header, so a
 changed source builds anew.  A missing ``nvcc`` or a failed build raises
 with the compiler's output; nothing degrades silently.
+
+Every launch entry point of ``SIGNATURES`` ends in ``(counters, stream)``:
+the address of its first counter in the tracer's device buffer
+(``utils/profiling.py``), null while tracing is off, when the kernel counts
+nothing, and the CUDA stream.  The wrappers (``kernels/*_cuda.py``) take
+CUDA tensors only and call ``check_cuda`` first, so that a tensor on any
+other device is refused before anything else; they check and allocate what
+is their own, then ``launch`` enters the tensors' device, appends the
+counter address and PyTorch's current stream to the arguments, calls the
+entry point inside a ``.launch`` span around the foreign call alone, and
+raises on a CUDA error.  A CPU batch takes the plain PyTorch versions
+through the codecs' routing (``config.kernels_enabled``), never a wrapper.
 """
 
 from __future__ import annotations
@@ -21,6 +31,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
+
+from tpucomp_torch.utils import profiling
 
 PACKAGE = Path(__file__).resolve().parent.parent
 SOURCES = PACKAGE / "csrc"
@@ -143,3 +157,29 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def check_cuda(entry: str, *tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device that ``tensors`` lie on, for entry point
+    ``entry``; raises ``ValueError`` on a tensor anywhere else."""
+    device = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"the {entry} kernel takes CUDA tensors, got one on {t.device}")
+        if t.device != device:
+            raise ValueError("all tensors must lie on one device")
+    return device
+
+
+def launch(entry: str, device: torch.device, counter: str, *args) -> None:
+    """Calls entry point ``entry`` with ``args``, the address of tracer
+    counter ``counter`` and PyTorch's current stream on ``device``, under
+    that device; raises ``RuntimeError`` on a non-zero return."""
+    with torch.cuda.device(device):
+        fn = getattr(load(), entry)
+        counters = profiling.counter_ptr(counter, device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with profiling.span(".launch"):
+            err = fn(*args, counters, stream)
+    if err:
+        raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err}")

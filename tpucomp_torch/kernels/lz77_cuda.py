@@ -7,21 +7,20 @@ match table        ``csrc/lz_match_table.cu``    the XLA pre-pass ``tpucomp/code
                                                  (not a ``pallas_call``) / ``codecs/lz77.py::match_table``
 =================  ============================  ==========================================================
 
-``match_table`` takes CUDA tensors only and launches on PyTorch's current
-stream; it raises on anything the kernel does not take.  The codecs call
-it with their format's limits (``codecs.lz4.compress``,
-``codecs.snappy.compress``), then their encode kernel.  ``LAUNCHES``
-counts its launches.  The table is allocated with ``torch.empty``: the
-kernel writes every entry.  The kernel's library gives the grid and the
-size of its scratch (two index arrays for each CTA the card holds at
-once, for rows past 64 KB; none for shorter rows), so the scratch is
-bounded by the card, not the batch.
+The codecs call ``match_table`` with their format's limits
+(``codecs.lz4.compress``, ``codecs.snappy.compress``), then their encode
+kernel.  ``LAUNCHES`` counts its launches.  The table is allocated with
+``torch.empty``: the kernel writes every entry.  The kernel's library gives
+the grid and the size of its scratch (two index arrays for each CTA the
+card holds at once, for rows past 64 KB; none for shorter rows), so the
+scratch is bounded by the card, not the batch.  The checks, the launch and
+its ``.launch`` span are ``kernels/_build.py``'s.
 
 Spans (``utils/profiling.py``): ``.table`` under the codec's span
-(``compress.lz4.table``, ``compress.snappy.table``), with a ``.launch``
-child around the foreign call alone.  Counters: ``lz.table.positions``
-and ``lz.table.large_bucket_positions``, which the kernel adds to for rows
-of up to 64 KB (one address, the first's; the second is the next slot).
+(``compress.lz4.table``, ``compress.snappy.table``).  Counters:
+``lz.table.positions`` and ``lz.table.large_bucket_positions``, which the
+kernel adds to for rows of up to 64 KB (one address, the first's; the
+second is the next slot).
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ import ctypes
 import torch
 
 from tpucomp_torch.kernels import _build
-from tpucomp_torch.utils import profiling
 from tpucomp_torch.utils.profiling import span
 
 LAUNCHES = {"table": 0}
@@ -44,11 +42,7 @@ def match_table(data: torch.Tensor, lengths: torch.Tensor, stride: int, max_offs
     arguments (``stride`` 1, 2 or 4, ``max_offset`` <= 65535, ``end_margin``
     >= 4)."""
     with span(".table"):
-        for t in (data, lengths):
-            if not t.is_cuda:
-                raise ValueError(f"the CUDA LZ kernels take CUDA tensors, got one on {t.device}")
-        if data.device != lengths.device:
-            raise ValueError("all tensors must lie on one device")
+        dev = _build.check_cuda("tc_lz_match_table", data, lengths)
         if data.dtype != torch.uint8 or data.dim() != 2:
             raise ValueError("data must be uint8[B, C]")
         if lengths.dtype != torch.int32 or tuple(lengths.shape) != (data.shape[0],):
@@ -61,23 +55,19 @@ def match_table(data: torch.Tensor, lengths: torch.Tensor, stride: int, max_offs
         if c > 1 << 24:
             raise ValueError("the match-table kernel takes rows of at most 16 MB")
         data, lengths = data.contiguous(), lengths.contiguous()
-        table = torch.empty(b, c, dtype=torch.uint16, device=data.device)  # the kernel writes every entry
+        table = torch.empty(b, c, dtype=torch.uint16, device=dev)  # the kernel writes every entry
         if b == 0 or c == 0:
             return table
-        lib = _build.load()
-        with torch.cuda.device(data.device):
+        with torch.cuda.device(dev):
             scratch_bytes = ctypes.c_longlong(0)
-            grid = lib.tc_lz_match_table_grid(b, c, ctypes.byref(scratch_bytes))
-            if grid <= 0:
-                raise RuntimeError(f"LZ match-table kernel: occupancy query failed with CUDA error {-grid}")
-            scratch = torch.empty(scratch_bytes.value, dtype=torch.uint8, device=data.device)
-            counters = profiling.counter_ptr("lz.table.positions", data.device)
-            with span(".launch"):
-                err = lib.tc_lz_match_table(
-                    data.data_ptr(), lengths.data_ptr(), table.data_ptr(), scratch.data_ptr(), b, c, stride,
-                    max_offset, end_margin, grid, counters, torch.cuda.current_stream(data.device).cuda_stream,
-                )
-        if err:
-            raise RuntimeError(f"LZ match-table kernel launch failed with CUDA error {err}")
+            grid = _build.load().tc_lz_match_table_grid(b, c, ctypes.byref(scratch_bytes))
+        if grid <= 0:
+            raise RuntimeError(f"LZ match-table kernel: occupancy query failed with CUDA error {-grid}")
+        scratch = torch.empty(scratch_bytes.value, dtype=torch.uint8, device=dev)
+        _build.launch(
+            "tc_lz_match_table", dev, "lz.table.positions",
+            data.data_ptr(), lengths.data_ptr(), table.data_ptr(), scratch.data_ptr(), b, c, stride,
+            max_offset, end_margin, grid,
+        )
         LAUNCHES["table"] += 1
         return table

@@ -12,16 +12,15 @@ pack, unpack       ``csrc/manager_copy.cu``      no TPU kernel: the plain versio
 ``pack`` writes a manager's whole artifact in one launch (header, tables,
 the streams packed gaplessly, zeros past them) after one cumsum of the
 sizes; ``unpack`` cuts the streams out of an artifact by its own tables.
-Both take CUDA tensors only, launch on PyTorch's current stream and raise
-on anything the kernel does not take.  The kernel writes every byte of
-its outputs, so they are allocated with ``torch.empty``.  ``LAUNCHES``
-counts the launches of each entry point.
+The kernel writes every byte of its outputs, so they are allocated with
+``torch.empty``.  ``LAUNCHES`` counts the launches of each entry point.
+The checks, the launch and its ``.launch`` span are ``kernels/_build.py``'s.
 
-Spans (``utils/profiling.py``): a ``.launch`` child of the manager's
-``compress.manager.assemble`` / ``decompress.manager.slice`` around the
-foreign call alone.  Counters: ``manager.pack.bytes`` and
-``manager.unpack.bytes``, the stream bytes each entry point copied (on a
-sound artifact, its ``comp_data_size``); null while tracing is off.
+Spans (``utils/profiling.py``): the ``.launch`` is a child of the
+manager's ``compress.manager.assemble`` / ``decompress.manager.slice``.
+Counters: ``manager.pack.bytes`` and ``manager.unpack.bytes``, the stream
+bytes each entry point copied (on a sound artifact, its
+``comp_data_size``).
 """
 
 from __future__ import annotations
@@ -30,24 +29,9 @@ import numpy as np
 import torch
 
 from tpucomp_torch.kernels import _build
-from tpucomp_torch.utils import profiling
-from tpucomp_torch.utils.profiling import span
 
 LAUNCHES = {"pack": 0, "unpack": 0}
 MAX_SECTIONS_OFF = 128  # the static head a launch carries, in bytes
-
-
-def _check_cuda(*tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"the CUDA manager kernel takes CUDA tensors, got one on {t.device}")
-        if t.device != tensors[0].device:
-            raise ValueError("all tensors must lie on one device")
-
-
-def _raise_if(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"manager {what} kernel launch failed with CUDA error {err}")
 
 
 def pack(comp: torch.Tensor, sizes: torch.Tensor, static_head: bytes, *, data_off: int, sections_off: int,
@@ -55,7 +39,7 @@ def pack(comp: torch.Tensor, sizes: torch.Tensor, static_head: bytes, *, data_of
     """comp uint8[k, row] and sizes[k] (integers in [0, row]) on one CUDA
     device -> (artifact uint8[out_max], comp_data_size as an int64 tensor of
     one element on the device), the artifact equal to ``_assemble_plain``'s."""
-    _check_cuda(comp, sizes)
+    dev = _build.check_cuda("tc_manager_pack", comp, sizes)
     if comp.dtype != torch.uint8 or comp.dim() != 2:
         raise ValueError("comp must be uint8[k, row]")
     k, row = comp.shape
@@ -70,18 +54,13 @@ def pack(comp: torch.Tensor, sizes: torch.Tensor, static_head: bytes, *, data_of
     comp = comp.contiguous()
     sizes = sizes.to(torch.int64).contiguous()
     inc = sizes.cumsum(0)
-    artifact = torch.empty(out_max, dtype=torch.uint8, device=comp.device)  # the kernel writes every byte
+    artifact = torch.empty(out_max, dtype=torch.uint8, device=dev)  # the kernel writes every byte
     head = np.frombuffer(static_head, np.uint8)
-    with torch.cuda.device(comp.device):
-        counter = profiling.counter_ptr("manager.pack.bytes", comp.device)
-        lib = _build.load()
-        with span(".launch"):
-            err = lib.tc_manager_pack(
-                comp.data_ptr(), sizes.data_ptr(), inc.data_ptr(), artifact.data_ptr(), k, row,
-                head.ctypes.data, len(static_head), sections_off, data_off, out_max, counter,
-                torch.cuda.current_stream(comp.device).cuda_stream,
-            )
-    _raise_if(err, "pack")
+    _build.launch(
+        "tc_manager_pack", dev, "manager.pack.bytes",
+        comp.data_ptr(), sizes.data_ptr(), inc.data_ptr(), artifact.data_ptr(), k, row,
+        head.ctypes.data, len(static_head), sections_off, data_off, out_max,
+    )
     LAUNCHES["pack"] += 1
     return artifact, inc[-1]
 
@@ -90,7 +69,7 @@ def unpack(artifact: torch.Tensor, num_chunks: int, data_off: int, sections_off:
     """The artifact's streams by its own tables (uint8[n] on a CUDA device)
     -> (rows uint8[num_chunks, max_chunk], sizes int32[num_chunks]), equal
     to ``_slice_plain``'s, damaged tables included."""
-    _check_cuda(artifact)
+    dev = _build.check_cuda("tc_manager_unpack", artifact)
     if artifact.dtype != torch.uint8 or artifact.dim() != 1:
         raise ValueError("the artifact must be uint8[n]")
     k = int(num_chunks)
@@ -99,16 +78,12 @@ def unpack(artifact: torch.Tensor, num_chunks: int, data_off: int, sections_off:
     if sections_off + 16 * k > artifact.numel():
         raise ValueError(f"the artifact ({artifact.numel()} bytes) ends inside its offset and size tables")
     artifact = artifact.contiguous()
-    rows = torch.empty(k, max_chunk, dtype=torch.uint8, device=artifact.device)  # the kernel writes every byte
-    sizes = torch.empty(k, dtype=torch.int32, device=artifact.device)
-    with torch.cuda.device(artifact.device):
-        counter = profiling.counter_ptr("manager.unpack.bytes", artifact.device)
-        lib = _build.load()
-        with span(".launch"):
-            err = lib.tc_manager_unpack(
-                artifact.data_ptr(), rows.data_ptr(), sizes.data_ptr(), artifact.numel(), k, max_chunk,
-                sections_off, data_off, counter, torch.cuda.current_stream(artifact.device).cuda_stream,
-            )
-    _raise_if(err, "unpack")
+    rows = torch.empty(k, max_chunk, dtype=torch.uint8, device=dev)  # the kernel writes every byte
+    sizes = torch.empty(k, dtype=torch.int32, device=dev)
+    _build.launch(
+        "tc_manager_unpack", dev, "manager.unpack.bytes",
+        artifact.data_ptr(), rows.data_ptr(), sizes.data_ptr(), artifact.numel(), k, max_chunk,
+        sections_off, data_off,
+    )
     LAUNCHES["unpack"] += 1
     return rows, sizes

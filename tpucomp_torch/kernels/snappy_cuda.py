@@ -9,25 +9,20 @@ decode             ``csrc/snappy_decode.cu``     ``tpucomp/kernels/snappy_pallas
                                                  / ``codecs/snappy.py::_decompress_plain``
 =================  ============================  ==========================================================
 
-The wrappers take CUDA tensors only and launch on PyTorch's current
-stream; they raise on anything the kernels do not take (a CPU tensor goes
-to the plain version through ``codecs.snappy.compress`` / ``decompress``,
-never through here).  The encode kernel reads the match table that
-``kernels/lz77_cuda.py`` makes with the Snappy limits;
-``codecs.snappy.compress`` launches the two in turn.  Both kernels write
-every byte of their outputs (zeros past each row's stream or length), so
-they are allocated with ``torch.empty``.  The decode launches a second
-kernel that rewrites, by start, the rows whose output goes back (only
-crafted streams have them), with an int32 scratch of ``out_capacity``
-entries a row, for up to ``REWRITE_SCRATCH // out_capacity`` rows at
-once.  ``LAUNCHES`` counts the launches of each wrapper.
+The encode kernel reads the match table that ``kernels/lz77_cuda.py``
+makes with the Snappy limits; ``codecs.snappy.compress`` launches the two
+in turn.  Both kernels write every byte of their outputs (zeros past each
+row's stream or length), so they are allocated with ``torch.empty``.  The
+decode launches a second kernel that rewrites, by start, the rows whose
+output goes back (only crafted streams have them), with an int32 scratch
+of ``out_capacity`` entries a row, for up to ``REWRITE_SCRATCH //
+out_capacity`` rows at once.  ``LAUNCHES`` counts the launches of each
+wrapper.  The checks, the launch and its ``.launch`` span are
+``kernels/_build.py``'s.
 
 Spans (``utils/profiling.py``): ``compress.snappy.encode`` and
-``decompress.snappy.decode``, each with a ``.launch`` child around the
-foreign call alone.  Each kernel takes one more argument, the address of
-the tracer's ``snappy.encode.sequences`` or ``snappy.decode.elements``
-counter; it is null while tracing is off, and the kernel then counts
-nothing.
+``decompress.snappy.decode``.  Counters: ``snappy.encode.sequences`` and
+``snappy.decode.elements``.
 """
 
 from __future__ import annotations
@@ -36,7 +31,6 @@ import torch
 
 from tpucomp_torch.core.sizing import snappy_max_compressed_chunk_size
 from tpucomp_torch.kernels import _build
-from tpucomp_torch.utils import profiling
 from tpucomp_torch.utils.profiling import span
 
 LAUNCHES = {"encode": 0, "decode": 0}
@@ -45,26 +39,13 @@ LAUNCHES = {"encode": 0, "decode": 0}
 REWRITE_SCRATCH = 1 << 20
 
 
-def _check(*tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"the CUDA Snappy kernels take CUDA tensors, got one on {t.device}")
-        if t.device != tensors[0].device:
-            raise ValueError("all tensors must lie on one device")
-
-
-def _raise_if(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"Snappy {what} kernel launch failed with CUDA error {err}")
-
-
 def encode(data: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
     """Encode kernel: data uint8[B, C], lengths int32[B] in [0, C] and their
     match table with the Snappy limits (``lz77_cuda.match_table``),
     uint16[B, C], on one CUDA device -> (comp uint8[B, SNAPPYMAX],
     comp_sizes int32[B])."""
     with span("compress.snappy.encode"):
-        _check(data, lengths, table)
+        dev = _build.check_cuda("tc_snappy_encode", data, lengths, table)
         if data.dtype != torch.uint8 or data.dim() != 2:
             raise ValueError("data must be uint8[B, C]")
         b, c = data.shape
@@ -76,19 +57,15 @@ def encode(data: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
             raise ValueError(f"lengths must be int32[{b}]")
         data, lengths, table = (t.contiguous() for t in (data, lengths, table))
         out_row = snappy_max_compressed_chunk_size(c)
-        out = torch.empty(b, out_row, dtype=torch.uint8, device=data.device)  # the kernel writes every byte
-        sizes = torch.empty(b, dtype=torch.int32, device=data.device)
+        out = torch.empty(b, out_row, dtype=torch.uint8, device=dev)  # the kernel writes every byte
+        sizes = torch.empty(b, dtype=torch.int32, device=dev)
         if b == 0:
             return out, sizes
-        with torch.cuda.device(data.device):
-            counter = profiling.counter_ptr("snappy.encode.sequences", data.device)
-            lib = _build.load()
-            with span(".launch"):
-                err = lib.tc_snappy_encode(
-                    data.data_ptr(), lengths.data_ptr(), table.data_ptr(), out.data_ptr(), sizes.data_ptr(),
-                    b, c, out_row, counter, torch.cuda.current_stream(data.device).cuda_stream,
-                )
-        _raise_if(err, "encode")
+        _build.launch(
+            "tc_snappy_encode", dev, "snappy.encode.sequences",
+            data.data_ptr(), lengths.data_ptr(), table.data_ptr(), out.data_ptr(), sizes.data_ptr(),
+            b, c, out_row,
+        )
         LAUNCHES["encode"] += 1
         return out, sizes
 
@@ -98,7 +75,7 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, out_capacity: int):
     device -> (data uint8[B, out_capacity], lengths int32[B], statuses
     int32[B])."""
     with span("decompress.snappy.decode"):
-        _check(comp, comp_sizes)
+        dev = _build.check_cuda("tc_snappy_decode", comp, comp_sizes)
         if comp.dtype != torch.uint8 or comp.dim() != 2 or comp.shape[1] < 1:
             raise ValueError("comp must be uint8[B, CMAX] with CMAX >= 1")
         if not 1 <= out_capacity < 2**31:
@@ -108,23 +85,18 @@ def decompress(comp: torch.Tensor, comp_sizes: torch.Tensor, out_capacity: int):
             raise ValueError("the decode kernel takes rows below 2**30 bytes")
         comp = comp.contiguous()
         comp_sizes = comp_sizes.to(torch.int32).contiguous()
-        out = torch.empty(b, out_capacity, dtype=torch.uint8, device=comp.device)  # the kernels write every byte
-        lengths = torch.empty(b, dtype=torch.int32, device=comp.device)
-        status = torch.empty(b, dtype=torch.int32, device=comp.device)
+        out = torch.empty(b, out_capacity, dtype=torch.uint8, device=dev)  # the kernels write every byte
+        lengths = torch.empty(b, dtype=torch.int32, device=dev)
+        status = torch.empty(b, dtype=torch.int32, device=dev)
         if b == 0:
             return out, lengths, status
         # rows whose output goes back are rewritten by start, `slots` at a time
         slots = max(1, min(-(-b // 32), REWRITE_SCRATCH // out_capacity))
-        scratch = torch.empty(slots * out_capacity, dtype=torch.int32, device=comp.device)
-        with torch.cuda.device(comp.device):
-            counter = profiling.counter_ptr("snappy.decode.elements", comp.device)
-            lib = _build.load()
-            with span(".launch"):
-                err = lib.tc_snappy_decode(
-                    comp.data_ptr(), comp_sizes.data_ptr(), out.data_ptr(), lengths.data_ptr(),
-                    status.data_ptr(), b, cmax, out_capacity, scratch.data_ptr(), slots, counter,
-                    torch.cuda.current_stream(comp.device).cuda_stream,
-                )
-        _raise_if(err, "decode")
+        scratch = torch.empty(slots * out_capacity, dtype=torch.int32, device=dev)
+        _build.launch(
+            "tc_snappy_decode", dev, "snappy.decode.elements",
+            comp.data_ptr(), comp_sizes.data_ptr(), out.data_ptr(), lengths.data_ptr(), status.data_ptr(),
+            b, cmax, out_capacity, scratch.data_ptr(), slots,
+        )
         LAUNCHES["decode"] += 1
         return out, lengths, status
