@@ -11,9 +11,16 @@ emulator's), calls their C entry points on CPU tensors as the wrappers
 call them on the card, and holds data, lengths and statuses to the plain
 versions with tolerance 0, and, on the golden and random batches, the
 decode walks' counters (``utils/profiling.py``) to the sequences or
-elements the streams hold (``lz_streams.py``): the crafted, golden, foreign and window cases
-of tests/torch_{lz4,snappy}_cases.py, garbage batches, a 1 MB Snappy row
-rewritten by start, and N random batches with damaged copies.  The
+elements the streams hold, and the LZ4 hand-offs to the streams'
+batches of 16 sequences, with no more waits than hand-offs
+(``lz_streams.py``): the crafted, golden, foreign and window cases
+of tests/torch_{lz4,snappy}_cases.py, one LZ4 CTA of unlike rows, garbage batches, a 1 MB Snappy row
+rewritten by start, N random batches with damaged copies, and an LZ4
+batch of more rows than the emulated launch has warps.  The LZ4 rows of
+the small batches are helped from their first batch (the emulated card
+has two SMs, so their launch has idle warps), and their hand-offs are
+the batches; in the large batch rows are decoded alone, helped midway
+or helped at their end, and the hand-offs are at most the batches.  The
 emulation checks logic only (no timing, memory model or nvcc); the
 ``cuda`` tests on the card stay the judge.  Prints one line per codec and
 every mismatch; exits 1 on any.
@@ -35,11 +42,12 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 import torch_lz4_cases as lc  # noqa: E402
 import torch_snappy_cases as sc  # noqa: E402
-from lz_streams import stream_counts  # noqa: E402
+from lz_streams import lz4_handoffs, stream_counts  # noqa: E402
 from oracles.lz4_oracle import lz4_compress_oracle  # noqa: E402
 from tpucomp_torch.codecs import lz4 as tl  # noqa: E402
 from tpucomp_torch.codecs import snappy as ts  # noqa: E402
 from tpucomp_torch.kernels import snappy_cuda as ks  # noqa: E402
+from tpucomp_torch.utils.corpus import load_corpus  # noqa: E402
 
 P, LL = ctypes.c_void_p, ctypes.c_longlong
 LAUNCH = re.compile(r"(\w+)<<<(.*)>>>\(")
@@ -71,7 +79,7 @@ def main():
         lib = build(args.csrc, tmp)
         bad = 0
 
-        def check(codec, comp, sizes, cap, label, counted=False):
+        def check(codec, comp, sizes, cap, label, counted=False, all_helped=True):
             nonlocal bad
             comp = torch.as_tensor(np.ascontiguousarray(comp))
             sizes = torch.as_tensor(np.asarray(sizes, np.int32)).contiguous()
@@ -80,7 +88,7 @@ def main():
             ln = torch.full((b,), -7, dtype=torch.int32)
             st = torch.full((b,), -7, dtype=torch.int32)
             ptrs = (comp.data_ptr(), sizes.data_ptr(), out.data_ptr(), ln.data_ptr(), st.data_ptr(), b, cmax, cap)
-            counter = torch.zeros(1, dtype=torch.int64)
+            counter = torch.zeros(3, dtype=torch.int64)  # LZ4: sequences, hand-offs, walker waits
             if codec == "lz4":
                 err = lib.tc_lz4_decode(*ptrs, counter.data_ptr(), None)
                 want = tl._decompress_plain(comp, sizes, cap)
@@ -97,9 +105,17 @@ def main():
                     return
             if counted:
                 held = stream_counts(codec, comp, sizes, cap)[0]
-                if int(counter) != held:
+                if int(counter[0]) != held:
                     bad += 1
-                    print(f"MISMATCH {codec} {label}: counted {int(counter)}, the streams hold {held}")
+                    print(f"MISMATCH {codec} {label}: counted {int(counter[0])}, the streams hold {held}")
+                if codec == "lz4":
+                    handoffs, waits = int(counter[1]), int(counter[2])
+                    batches = lz4_handoffs(comp, sizes, cap)
+                    if (handoffs != batches if all_helped else handoffs > batches) or not 0 <= waits <= handoffs:
+                        bad += 1
+                        print(f"MISMATCH lz4 {label}: {handoffs} hand-offs and {waits} waits, the streams give "
+                              f"{lz4_handoffs(comp, sizes, cap)} hand-offs")
+
 
         for codec, cases, plain in (("snappy", sc, ts), ("lz4", lc, tl)):
             n0 = bad
@@ -114,7 +130,13 @@ def main():
                 window = sc.window_cases(np.random.default_rng(7))
             else:
                 check(codec, *lc.s_max_overrun(), "s_max overrun")
+                check(codec, *lc.handoff_rows(np.random.default_rng(3))[:3], "one CTA of unlike rows, one failing")
                 window = lc.window_cases(lc.window_rows(np.random.default_rng(7)), lz4_compress_oracle)
+                rng = np.random.default_rng(9)
+                data = torch.from_numpy(np.frombuffer(load_corpus(96 * 4096), np.uint8).reshape(96, 4096).copy())
+                comp, sizes = tl.compress(data, torch.from_numpy(rng.integers(0, 4097, 96).astype(np.int32)))
+                check(codec, comp, sizes, 4096, "96 rows, more than the launch's warps", counted=True,
+                      all_helped=False)
             for label, comp, sizes, cap in window:
                 check(codec, comp, sizes, cap, label)
             for seed in range(3):

@@ -5,7 +5,11 @@
 // after another; a block's threads run as ucontext coroutines on one OS
 // thread; every warp intrinsic is an exchange at which all 32 lanes of the
 // warp meet (a warp whose lanes diverge there aborts), __syncthreads one at
-// which the block's threads meet.  Shared memory is a function's static
+// which the block's threads meet.  An mbarrier (the LZ4 decode kernel's
+// hand-off between warps, csrc/lz4_handoff.cuh) is its arrivals and
+// phases; a wait that finds its phase incomplete yields to the block's
+// other threads, and a round in which every waiter yields and nothing
+// arrives aborts as a deadlock.  Shared memory is a function's static
 // storage, which is right because blocks never overlap; dynamic shared memory
 // (`extern __shared__`, which the check scripts rewrite to
 // emu_dynamic_smem()) one static buffer, filled with 0xA5 before each block.  Nothing here
@@ -35,6 +39,8 @@ extern uint3e threadIdx, blockIdx, blockDim, gridDim;
 
 struct __attribute__((aligned(8))) uint2 { unsigned x, y; };
 struct __attribute__((aligned(16))) uint4 { unsigned x, y, z, w; };
+struct __attribute__((aligned(16))) int4 { int x, y, z, w; };
+inline int4 make_int4(int a, int b, int c, int d) { return int4{a, b, c, d}; }
 inline uint2 make_uint2(unsigned a, unsigned b) { return uint2{a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return uint4{a, b, c, d}; }
 
@@ -105,6 +111,24 @@ inline int __all_sync(unsigned mk, int p) { return __ballot_sync(mk, p) == ~0u; 
 inline void __syncwarp(unsigned = ~0u) { emu_exchange(0, false); }
 inline void __syncthreads() { emu_exchange(0, true); }
 
+// mbarriers: the 8 bytes hold the arrivals a phase expects (bits 0-15),
+// those still to come in this phase (16-31) and the phases completed (32-63).
+#define TPUCOMP_CUDA_EMU 1
+void emu_yield();           // let the block's other threads run, then go on
+extern unsigned long long emu_arrivals;  // every arrival, for the deadlock check
+inline void mbar_init(unsigned long long* bar, unsigned count) { *bar = count | (unsigned long long)count << 16; }
+inline void mbar_arrive(unsigned long long* bar) {
+  ++emu_arrivals;
+  const unsigned long long expect = *bar & 0xffff, left = (*bar >> 16 & 0xffff) - 1, phases = *bar >> 32;
+  *bar = left ? expect | left << 16 | phases << 32 : expect | expect << 16 | (phases + 1) << 32;
+}
+inline bool mbar_test(unsigned long long* bar, unsigned parity) { return (unsigned)(*bar >> 32 & 1) != parity; }
+inline bool mbar_try(unsigned long long* bar, unsigned parity) {
+  if (mbar_test(bar, parity)) return true;
+  emu_yield();
+  return false;
+}
+
 void emu_run(unsigned grid, unsigned block, std::function<void()> body);
 
 struct emu_cfg { unsigned g, b; emu_cfg(unsigned g_, unsigned b_, size_t = 0, void* = nullptr) : g(g_), b(b_) {} };
@@ -139,6 +163,8 @@ inline int __syncthreads_or(int pred) {
   return any;
 }
 inline unsigned atomicOr(unsigned* p, unsigned v) { auto o = *p; *p |= v; return o; }
+inline int atomicExch(int* p, int v) { auto o = *p; *p = v; return o; }
+inline int atomicCAS(int* p, int cmp, int v) { auto o = *p; if (o == cmp) *p = v; return o; }
 inline unsigned __reduce_or_sync(unsigned, unsigned v) {
   const unsigned long long* s = emu_exchange(v, false);
   unsigned m = 0;

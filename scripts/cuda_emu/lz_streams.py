@@ -22,3 +22,15 @@ def stream_counts(codec: str, comp: torch.Tensor, sizes: torch.Tensor, cap: int)
     cont = torch.zeros_like(mlen, dtype=torch.bool)
     cont[:, 1:] = (mlen[:, :-1] > 0) & (off[:, 1:] == off[:, :-1])
     return int(steps.sum()), int(((mlen > 0) & ~cont).sum() + (total > 0).sum())
+
+
+LZ4_BATCH = 16  # sequences a batch of the LZ4 decode kernel's walk (kBatch, csrc/lz4_handoff.cuh)
+
+
+def lz4_handoffs(comp: torch.Tensor, sizes: torch.Tensor, cap: int) -> int:
+    """The ring slots the LZ4 decode kernel's walker fills on the
+    well-formed streams ``comp[i, :sizes[i]]``: a batch of up to 16
+    sequences a slot, the last one marking the row's end, and one slot for
+    a row of no sequence."""
+    steps = tl._delimit(comp, sizes, cap, comp.shape[1] // 3 + 2)[1]
+    return int(torch.clamp((steps + LZ4_BATCH - 1) // LZ4_BATCH, min=1).sum())

@@ -175,7 +175,8 @@ def test_port_never_imports_jax_or_tpucomp():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/torch_cascaded_ab.py", "scripts/torch_table_ab.py",
                                     "scripts/torch_table_clocks.py", "scripts/torch_multicard.py",
-                                    "examples/torch_round_trip.py", "examples/torch_distributed.py"])
+                                    "examples/torch_round_trip.py", "examples/torch_distributed.py",
+                                    "scripts/torch_decode_ab.py", "scripts/torch_decode_clocks.py"])
 def test_chip_scripts_never_import_the_tpu_bench(script):
     """The card's scripts and the port's examples take their corpora from
     the port (tpucomp_torch/utils/corpus.py), not from the JAX package's

@@ -130,6 +130,79 @@ def test_lz4_decode_window_cases_equal_plain(cuda, case):
 
 
 @pytest.mark.cuda
+def test_lz4_decode_one_cta_of_unlike_rows_equal_plain(cuda):
+    """Rows as unlike as they get, each walked by its own warp and copied
+    by a helper: 2,000 5-byte sequences, one literal run, an empty stream,
+    and a row that fails after 12 hand-offs, which comes out all zeros with
+    status 12."""
+    comp, sizes, cap, bad = cases.handoff_rows(np.random.default_rng(3))
+    out, olen, status = _decode_both(torch.from_numpy(comp).to(cuda), torch.from_numpy(sizes).to(cuda), cap)
+    assert olen.tolist() == [cap, 3000, 0, 0] and status.tolist() == [0, 0, 0, 12]
+    assert not out[bad].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_lz4_decode_past_s_max_equal_plain(cuda):
+    """A row that ends past the JAX loop's sequence bound, beside rows that
+    do not: the warp that ends it continues the last recorded match."""
+    comp, sizes, cap = cases.s_max_overrun()
+    rows, lens = cases.batch([comp[0], comp[0][:40], b"", comp[0]], comp.shape[1])
+    lens[:] = [sizes[0], 40, 0, sizes[0] - 1]
+    out, olen, status = _decode_both(torch.from_numpy(rows).to(cuda), torch.from_numpy(lens).to(cuda), cap)
+    assert int(status[0]) == 0 and int(olen[0]) == 8013
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_lz4_decode_1mb_row(cuda):
+    """A 1 MB row of the mixed corpus (tens of thousands of hand-offs and
+    many refills of the stream window) decodes to its input; at a capacity
+    one byte short it fails whole."""
+    from tpucomp_torch.utils.corpus import load_corpus
+
+    c = 1 << 20
+    data = torch.from_numpy(np.frombuffer(load_corpus(c), np.uint8).copy()).view(1, c).to(cuda)
+    n = torch.full((1,), c, dtype=torch.int32, device=cuda)
+    comp, sizes = tl.compress(data, n)
+    out, olen, status = kl.decompress(comp, sizes, c)
+    assert torch.equal(out, data) and int(olen[0]) == c and not status.any()
+    out, olen, status = kl.decompress(comp, sizes, c - 1)
+    assert not out.any() and int(olen[0]) == 0 and int(status[0]) == 12
+
+
+@pytest.mark.cuda
+def test_lz4_decode_counts_handoffs_only_while_tracing(cuda):
+    """A chunk's own warp counts the ring slots it fills for the warp that
+    helps it, a batch of up to 16 sequences a slot and one for the row's
+    end where no batch carries it, and the fills that waited on the
+    helper, beside the sequences it completed; with tracing off nothing is
+    counted.  The launch gives these four rows idle warps, which help from
+    about the first batch on, so the slots are at most the rows' batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpucomp_torch.utils import profiling
+
+    comp, sizes, cap, _ = cases.handoff_rows(np.random.default_rng(3))
+    comp, sizes = torch.from_numpy(comp).to(cuda), torch.from_numpy(sizes).to(cuda)
+    profiling.reset()
+    try:
+        kl.decompress(comp, sizes, cap)
+        torch.cuda.synchronize()
+        assert profiling.counters() == {}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            kl.decompress(comp, sizes, cap)
+            torch.cuda.synchronize()
+        counts = profiling.counters()
+    finally:
+        profiling.reset()
+    # rows: 2,001 sequences (126 slots), 1 (1), none (1), 192 before the failing batch (12 + 1)
+    assert counts["lz4.decode.sequences"] == 2001 + 1 + 192
+    assert 0 < counts["lz4.decode.handoffs"] <= 126 + 1 + 1 + 13
+    assert 0 <= counts["lz4.decode.walker_waits"] <= counts["lz4.decode.handoffs"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("seed", range(40))
 def test_lz4_random_batches_equal_plain(cuda, seed):
     """Random rows, lengths, capacities and strides; the kernels' streams,

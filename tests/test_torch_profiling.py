@@ -205,6 +205,21 @@ def test_decode_counters_are_adjacent_slots_reset_with_the_others(tracer):
     assert tracer.counters() == {}
 
 
+def test_lz4_decode_counters_are_adjacent_slots(tracer):
+    """The LZ4 decode kernel adds to ``lz4.decode.sequences`` through its
+    address, and to ``.handoffs`` and ``.walker_waits`` in the two slots
+    after it; nothing else moves."""
+    i = profiling.COUNTERS.index("lz4.decode.sequences")
+    assert profiling.COUNTERS[i + 1:i + 3] == ("lz4.decode.handoffs", "lz4.decode.walker_waits")
+    with profile(activities=CPU):
+        ptr = tracer.counter_ptr("lz4.decode.sequences", torch.device("cpu"))
+    for k, v in enumerate((5_000, 320, 41)):
+        ctypes.c_int64.from_address(ptr + 8 * k).value += v
+    want = {**dict.fromkeys(profiling.COUNTERS, 0), "lz4.decode.sequences": 5_000, "lz4.decode.handoffs": 320,
+            "lz4.decode.walker_waits": 41}
+    assert tracer.counters() == want
+
+
 def test_trace_reduce_labels_gaps_with_the_port_spans():
     """The benchmark's own reduction, unchanged: an idle gap inside a port
     span nested in ``compress.call`` is labelled by the port span."""
@@ -308,6 +323,8 @@ READERS = [
      {"decompress": _window({"lz4_decode_kernel": 0.006}, calls=3)}, 1e9 * (0.006 / 3) / (3_000 / 2)),
     ("lz_table_large_bucket_pct", "lz4", [],
      {"lz.table.positions": 2_000, "lz.table.large_bucket_positions": 680}, None, 34.0),
+    ("lz4_decode_walker_wait_pct", "lz4", [],
+     {"lz4.decode.sequences": 6_000, "lz4.decode.handoffs": 400, "lz4.decode.walker_waits": 100}, None, 25.0),
     ("cascaded_decode_ns_per_chunk", "cascaded", _calls("decompress", "cascaded", 4),
      {"cascaded.encode.chunks": 9_999, "cascaded.decode.chunks": 262_144},
      {"decompress": _window({DEC64: 0.006, "Memcpy DtoH (Device -> Pageable)": 0.001}, calls=5)},
@@ -348,6 +365,13 @@ def test_decode_ns_per_chunk_reads_none_without_its_counter(monkeypatch):
     monkeypatch.setattr(profiling, "counters", lambda: {"cascaded.encode.chunks": 65_536})
     run = _run("cascaded", {"decompress": _window({DEC32: 0.006}, calls=5)})
     assert harness.load_module("metrics", "cascaded_decode_ns_per_chunk").read(run) is None
+
+
+def test_walker_wait_pct_reads_none_without_handoffs(monkeypatch):
+    """Sequences counted but no hand-off (a port whose decode kernel walks
+    and copies on one warp): None."""
+    monkeypatch.setattr(profiling, "counters", lambda: {"lz4.decode.sequences": 6_000})
+    assert harness.load_module("metrics", "lz4_decode_walker_wait_pct").read(_run("lz4")) is None
 
 
 @pytest.mark.parametrize("metric,codec,records,counts,windows,want", READERS, ids=[r[0] for r in READERS])

@@ -180,6 +180,25 @@ def s_max_overrun():
     return comp, np.array([103], np.int32), 8192
 
 
+def handoff_rows(rng, n: int = 2000, fail_at: int = 200):
+    """Four rows for one CTA of the decode kernel (a walker and a copier
+    warp a row), as unlike as rows get: n 5-byte sequences (two literals, a
+    match of 4 at offset 2) then one literal; one literal run of 3,000
+    random bytes; an empty stream; the first row with the offset of
+    sequence ``fail_at`` set to 0, so that the row fails after
+    ``fail_at // 16`` hand-offs of 16 sequences.  Returns (comp uint8[4,
+    CMAX], sizes int32[4], out_capacity, the failing row's index)."""
+    lits = rng.integers(0, 256, (n, 2), dtype=np.uint8)
+    seqs = np.concatenate([np.full((n, 1), 0x20, np.uint8), lits, np.tile(np.uint8([2, 0]), (n, 1))], axis=1)
+    five = seqs.tobytes() + bytes([0x10, 0x41])
+    lsic = 3000 - 15
+    random = bytes([0xF0]) + bytes([255]) * (lsic // 255) + bytes([lsic % 255]) + rng.bytes(3000)
+    fail = bytearray(five)
+    fail[5 * fail_at + 3] = 0
+    comp, sizes = batch([five, random, b"", bytes(fail)], len(five))
+    return comp, sizes, 6 * n + 1, 3
+
+
 def kernel_sizes(rng):
     """Chunks from tiny to 1 MB, one batch per capacity, for the
     kernel-vs-plain comparisons on the card.  The plain versions step one

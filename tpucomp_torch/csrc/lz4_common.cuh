@@ -5,8 +5,10 @@
 // All four run one warp per chunk (several chunks per CTA): the warp's 32
 // lanes hold the same parse state, step through the chunk's sequences
 // together, and share the byte work of each (comparisons by ballot,
-// output bytes one per lane).  The match-table kernel (lz_match_table.cu)
-// has its own shape: one CTA of 1,024 threads per job.
+// output bytes one per lane).  The LZ4 decode kernel adds a second warp to
+// a chunk where one is idle, for the copies (lz4_handoff.cuh).  The
+// match-table kernel (lz_match_table.cu) has its own shape: one CTA of
+// 1,024 threads per job.
 #pragma once
 
 #include <cstdint>

@@ -1,7 +1,9 @@
 // Shared machinery of the LZ4 and Snappy decode kernels.
 //
-// One warp decodes one chunk.  Its 32 lanes walk the stream together
-// (the walk's state is uniform, in registers), and share the bytes:
+// One warp decodes one chunk (the LZ4 kernel hands a chunk's copies to a
+// second warp where one is idle: lz4_handoff.cuh).  Its 32 lanes walk the
+// stream together (the walk's state is uniform, in registers), and share
+// the bytes:
 //
 //   - Window: the compressed row staged in shared memory, kWin bytes a
 //     warp, refilled with 16-byte loads as the walk moves on.  `at` reads

@@ -17,8 +17,9 @@ row's stream or length), so they are allocated with ``torch.empty``.
 and its ``.launch`` span are ``kernels/_build.py``'s.
 
 Spans (``utils/profiling.py``): ``compress.lz4.encode`` and
-``decompress.lz4.decode``.  Counters: ``lz4.encode.sequences`` and
-``lz4.decode.sequences``.
+``decompress.lz4.decode``.  Counters: ``lz4.encode.sequences``, and
+``lz4.decode.sequences`` with the two slots after it,
+``lz4.decode.handoffs`` and ``lz4.decode.walker_waits``.
 """
 
 from __future__ import annotations

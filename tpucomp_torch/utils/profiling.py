@@ -53,7 +53,9 @@ encode kernel ran through its pipeline), ``cascaded.encode.chunks_discarded``
 pipeline), ``cascaded.decode.partitions_raw`` (non-empty partitions it
 copied raw), ``lz4.encode.sequences`` / ``snappy.encode.sequences``
 (sequences the encode walk emitted), ``lz4.decode.sequences`` (sequences the decode walk
-completed), ``snappy.decode.elements`` (elements the decode walk
+completed), ``lz4.decode.handoffs`` (the ring slots the LZ4 decode kernel's walker warp
+filled for its copier warp) and ``lz4.decode.walker_waits`` (the fills at which the
+walker found the ring full and waited on the copier), ``snappy.decode.elements`` (elements the decode walk
 completed), and the match-table kernel's, for rows of up to 64 KB (LZ4
 and Snappy alike): ``lz.table.positions`` (the valid positions it grouped)
 and ``lz.table.large_bucket_positions`` (those in buckets of more than 32,
@@ -90,6 +92,8 @@ COUNTERS = (
     "cascaded.decode.partitions_raw",  # the kernel adds to the slot after cascaded.decode.chunks
     "lz4.encode.sequences",
     "lz4.decode.sequences",
+    "lz4.decode.handoffs",  # the kernel adds to the two slots after lz4.decode.sequences
+    "lz4.decode.walker_waits",
     "snappy.encode.sequences",
     "snappy.decode.elements",
     "lz.table.positions",
